@@ -1,5 +1,5 @@
-"""rlsolver_tpu: a TPU-native framework for massively-parallel combinatorial
-optimization with reinforcement learning.
+"""rlsolver_tpu: a JAX framework for massively-parallel combinatorial
+optimization with reinforcement learning, run on NVIDIA GPUs.
 
 Built from scratch on JAX/XLA (jit + vmap + shard_map, Pallas kernels for hot
 sampling loops). Capability parity target: Open-Finance-Lab/RLSolver (see

@@ -5,7 +5,7 @@ Reference counterpart: `rlsolver/methods/attention_model/AM_TSP/trainer.py`
 baseline REINFORCE loss `_compute_loss_core:180-198`, NCCL DDP over
 instance batches, grad clip + lr schedule) and `train.py:29`.
 
-TPU-first: the whole rollout is a `lax.scan` over tour steps with the
+Accelerator-first: the whole rollout is a `lax.scan` over tour steps with the
 encoder output computed once and closed over (the reference re-checkpoints
 the decoder per step); POMO starts are an extra batch axis of size P = N
 (rollout p starts at city p). Data-parallel training shards the instance

@@ -7,7 +7,7 @@ each) with soft target updates (`AgentBase.soft_update`
 automatic entropy temperature (SAC). The CO methods themselves only use
 DQN/PPO, but the agent zoo is part of the framework surface.
 
-TPU-first: one shared off-policy skeleton — pytree replay ring buffer, one
+Accelerator-first: one shared off-policy skeleton — pytree replay ring buffer, one
 jitted update step per agent; exploration/rollout is the caller's loop
 (environments here are pure functions, cf. `rlsolver_tpu.envs`).
 """

@@ -10,7 +10,7 @@ grad_z ||F G(z) - y||^2 (`nn_dcs.py:122-` `train_dcs`, `Step_size`
 ("+ NN" row). The MATLAB LASSO baselines (`test_LeastR.m`) map to the
 ISTA/FISTA iterations here.
 
-TPU-first: the inner latent-optimization loop is a `lax.scan` with
+Accelerator-first: the inner latent-optimization loop is a `lax.scan` with
 `jax.grad` through the generator (cheap second-order-free unrolling);
 training vmaps over a batch of signals; synthetic sparse signals replace
 the MNIST pipeline (no dataset dependency).

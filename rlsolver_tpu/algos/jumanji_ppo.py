@@ -8,7 +8,7 @@ PPO/A2C only drove the simple flip MDP; this module trains on the full
 7-observable SpinSystemEnv (BLS rewards, basin/stagnation shaping,
 revisit hashing).
 
-TPU-first: one training iteration — a fresh episode rollout over the whole
+Accelerator-first: one training iteration — a fresh episode rollout over the whole
 horizon (`lax.scan`), GAE, and the PPO/A2C update — is a single jitted
 program; the MPNN actor-critic shares its trunk between per-node policy
 logits and a pooled value head.

@@ -9,7 +9,7 @@ best cut over 30 fixed seeded validation instances
 protocol behind the README's distribution-wise benchmark tables
 (`Benchmark.rst:17-76`).
 
-TPU-first: every jitted function takes the dense adjacency as an ARGUMENT
+Every jitted function takes the dense adjacency as an ARGUMENT
 (same [N, N] shape across the family), so training over thousands of
 sampled graphs reuses one compiled program — no per-instance retrace.
 """
@@ -32,6 +32,8 @@ from rlsolver_tpu.models.transformer import (
     PolicyTrsWithValue,
     solution_to_prob_channels,
 )
+from rlsolver_tpu.ops.counter_rng import seed_from_key
+from rlsolver_tpu.ops.pallas.mcpg_sweep import WeightedSweepTables, mcpg_sweep_fused
 from rlsolver_tpu.ops.reductions import update_xs_by_vs
 from rlsolver_tpu.ops.sampling import sub_set_sampling
 
@@ -248,16 +250,13 @@ def _guided_round(
     num_repeats: int,
     top_k: int,
     num_sweeps: int,
-    block_chains: int,
-    kernel,
 ):
     """One policy-guided packed-search improvement round (the reference's
     rollout-step protocol, `demo_instance.py:141-168`, with the degree-
-    ordered MCPG sweep engine as the parallel local search).
+    ordered MCPG sweep kernel as the parallel local search).
 
-    `kernel`: None for the XLA 1-flip sweep (CPU-testable), or the static
-    `(weighted, node_chunk)` pair from a `FusedSweepEngine` selecting the
-    packed TPU kernel; the tables pytree rides separately as a traced
+    `tables`: None for the XLA 1-flip sweep (CPU-testable), or the
+    `WeightedSweepTables` of the packed GPU sweep kernel, riding as a traced
     argument."""
     k_sample, k_seed, k_pos, k_draw = jax.random.split(key, 4)
     logits, _ = net.apply(params, solution_to_prob_channels(xs), seq_graph)
@@ -280,24 +279,10 @@ def _guided_round(
         cand = jax.lax.dynamic_update_slice_in_dim(
             cand, explore, (num_repeats - 1) * s, axis=0
         )
-    if kernel is not None:
-        from rlsolver_tpu.ops.pallas.mcpg_sweep import mcpg_sweep_fused
-        from rlsolver_tpu.ops.pallas.weighted_sweep import (
-            mcpg_sweep_weighted_fused,
+    if tables is not None:
+        bits = mcpg_sweep_fused(
+            seed_from_key(k_seed), cand, tables, num_sweeps=num_sweeps
         )
-
-        weighted, node_chunk = kernel
-        seed = jax.random.randint(k_seed, (), 0, jnp.iinfo(jnp.int32).max)
-        if weighted:
-            bits = mcpg_sweep_weighted_fused(
-                seed, cand, tables, num_sweeps=num_sweeps,
-                block_chains=block_chains, node_chunk=node_chunk,
-            )
-        else:
-            bits = mcpg_sweep_fused(
-                seed, cand, tables, num_sweeps=num_sweeps,
-                block_chains=block_chains,
-            )
     else:
         bits = sweep_1flip_adj(cand, adj, num_sweeps)
     cand_vs = _cut_value_adj(bits, adj)
@@ -315,10 +300,7 @@ def _guided_round(
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "net", "num_repeats", "top_k", "num_sweeps", "block_chains",
-        "kernel", "block_len",
-    ),
+    static_argnames=("net", "num_repeats", "top_k", "num_sweeps", "block_len"),
 )
 def _guided_block(
     net,
@@ -333,12 +315,10 @@ def _guided_block(
     num_repeats: int,
     top_k: int,
     num_sweeps: int,
-    block_chains: int,
-    kernel,
     block_len: int,
 ):
-    """`block_len` guided rounds as one `lax.scan` program — one remote
-    dispatch per block, not per round. All per-instance data (`tables`,
+    """`block_len` guided rounds as one `lax.scan` program — one dispatch
+    per block, not per round. All per-instance data (`tables`,
     `adj`, `seq_graph`) ride as jit ARGUMENTS, so one compiled program
     serves every same-shape instance of a campaign cell (and across
     distributions at the same N)."""
@@ -348,7 +328,6 @@ def _guided_block(
         xs, vs = _guided_round(
             net, params, seq_graph, k, tables, adj, xs, vs,
             num_repeats=num_repeats, top_k=top_k, num_sweeps=num_sweeps,
-            block_chains=block_chains, kernel=kernel,
         )
         return (xs, vs), None
 
@@ -372,23 +351,21 @@ def evaluate_l2a_packed(
     MCPG's (96 rounds x 2048 candidates x 2 XLA sweeps vs 384 rounds x
     8192 candidates x 8 packed sweeps) — the flagship lost to its own
     baseline on search power, not policy quality. This evaluator drives the
-    same `mcpg_sweep_fused` kernel (~941M node-updates/s) under the trained
+    same `mcpg_sweep_fused` kernel as MCPG's packed sweep under the trained
     distribution-wise policy: per round, the policy conditions on the
     incumbent population, `sub_set_sampling` resamples the top-k most
     uncertain bits into `num_repeats` candidates, the packed degree-ordered
     sweep refines all candidates, and best-of-repeats elitist-updates the
     population (reference protocol `demo_instance.py:141-168` at MCPG-class
-    search budgets). Returns the best cut per instance.
+    search budgets). The packed kernel runs on a GPU (`use_packed`
+    defaults to whether one is the default backend); elsewhere the XLA
+    1-flip sweep stands in. Returns the best cut per instance.
     """
-    from rlsolver_tpu.ops.pallas.engine import FusedSweepEngine
-
     cfg: L2ADistConfig = bundle["config"]
     net, params = bundle["net"], bundle["params"]
     enc, enc_params = bundle["encoder"], bundle["encoder_params"]
     if use_packed is None:
-        use_packed = jax.devices()[0].platform != "cpu"
-    chains = num_sims * num_repeats
-    block_chains = 512 if chains % 512 == 0 else chains
+        use_packed = jax.default_backend() == "gpu"
 
     embed = jax.jit(lambda adj: enc.embed(enc_params, adj[None])[0])
     block_len = 8
@@ -396,10 +373,7 @@ def evaluate_l2a_packed(
     out = np.zeros(len(graphs))
     for gi, g in enumerate(graphs):
         adj = jnp.asarray(g.adjacency_dense(), jnp.float32)
-        tables, kernel = None, None
-        if use_packed:
-            engine = FusedSweepEngine.build(g, block_chains)
-            tables, kernel = engine.tables, (engine.weighted, engine.node_chunk)
+        tables = WeightedSweepTables.build(g) if use_packed else None
         seq = embed(adj)
         key, k_init = jax.random.split(key)
         xs = jax.random.bernoulli(k_init, 0.5, (num_sims, g.num_nodes))
@@ -409,8 +383,7 @@ def evaluate_l2a_packed(
             xs, vs = _guided_block(
                 net, params, seq, k, tables, adj, xs, vs,
                 num_repeats=num_repeats, top_k=cfg.top_k,
-                num_sweeps=num_sweeps, block_chains=block_chains,
-                kernel=kernel, block_len=block_len,
+                num_sweeps=num_sweeps, block_len=block_len,
             )
         out[gi] = float(jnp.max(vs))
     return out
@@ -429,7 +402,7 @@ def evaluate_l2a_distribution(
     `num_rounds` improvement rounds (probs -> top-k resample -> 1-flip sweep
     -> elitist accept) — the reference's table protocol of evaluating the
     distribution-wise net on the 10 seeded benchmark instances
-    (`demo_distribution.py:110-125`). TPU-first: the instances are stacked
+    (`demo_distribution.py:110-125`). The instances are stacked
     on a leading axis and the whole rollout (vmap over instances, `lax.scan`
     over rounds, a final sweep-to-convergence polish) is ONE jitted call.
     Returns the best cut per instance.
@@ -488,9 +461,9 @@ def evaluate_l2a_distribution(
     key = jax.random.PRNGKey(seed)
     seqs = embed_v(adj_stack)
 
-    # HBM budget: the policy's cross-attention materializes
+    # Memory budget: the policy's cross-attention materializes
     # f32[g, s, heads, N, N] score tensors — 12 GB for 10 graphs x 512 sims
-    # at N = 400 (this OOMed the v5e during the distribution-table runs).
+    # at N = 400.
     # Evaluate graph-by-graph and chunk the sim axis so one call's scores
     # stay under ~3 GB; chunks are independent restarts of the same
     # policy-guided search, so the max over chunks is the same protocol.

@@ -13,7 +13,7 @@ Reference counterparts:
 
 Both are batched over envs and run their full inner loops inside jit.
 The relaxed maxcut objective is the expected cut
-E[cut] = sum_ij w_ij (p_i + p_j - 2 p_i p_j), one dense matmul on MXU.
+E[cut] = sum_ij w_ij (p_i + p_j - 2 p_i p_j), one dense matmul.
 """
 
 from __future__ import annotations

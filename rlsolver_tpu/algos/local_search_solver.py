@@ -35,7 +35,6 @@ class LocalSearchConfig:
     replace_frac: float = 0.125  # worst chains replaced per iteration
     seed: int = 0
     log_every: int = 4
-    packed_sweep: bool = False  # bit-packed Pallas 1-flip sweep (TPU, {0, +-1} weights)
 
 
 def solve_maxcut_local_search(
@@ -46,7 +45,7 @@ def solve_maxcut_local_search(
     verbose: bool = False,
 ):
     """Returns (best_x np.bool_[n], best_v float, evaluator)."""
-    env = MaxcutEnv(graph, packed_sweep=config.packed_sweep)
+    env = MaxcutEnv(graph)
     key = jax.random.PRNGKey(config.seed)
     key, k_init = jax.random.split(key)
     xs = env.random_xs(k_init, config.num_sims)

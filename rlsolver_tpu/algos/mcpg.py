@@ -34,6 +34,9 @@ from rlsolver_tpu.core.result import write_graph_result
 from rlsolver_tpu.envs.maxcut import MaxcutEnv
 from rlsolver_tpu.eval.evaluator import Evaluator
 from rlsolver_tpu.models.policy import BernoulliPolicy
+from rlsolver_tpu.ops.counter_rng import seed_from_key
+from rlsolver_tpu.ops.pallas.mcpg_sweep import WeightedSweepTables, mcpg_sweep_fused
+from rlsolver_tpu.ops.pallas.mh_sampler import mh_sample_fused, require_gpu
 from rlsolver_tpu.ops.reductions import pick_xs_by_vs, update_xs_by_vs
 from rlsolver_tpu.ops.sampling import bernoulli_logp, metropolis_bitflip_chain
 from rlsolver_tpu.ops.sweeps import (
@@ -56,38 +59,27 @@ class MCPGConfig:
     change_times: Optional[int] = None  # MH accept budget per chain; default N/10
     warmup_ls_rounds: int = 4  # incumbent warm start via parallel local search
     seed: int = 0
-    sweep_mode: str = "sequential"  # "sequential" (parity) | "colored" (MXU)
-    # | "packed" (bit-packed Pallas kernel with on-core PRNG; TPU-only,
-    #   {0, +-1}-weight graphs — ~941M node-updates/s at G22-class shapes)
+    sweep_mode: str = "sequential"  # "sequential" (parity, XLA scan) |
+    # "colored" (color-class matmuls) | "packed" (the bit-packed Pallas
+    # sweep kernel, `ops/pallas/mcpg_sweep.py`; GPU only, integer weights)
     sampler: str = "budgeted"  # "budgeted" (reference-parity accept budget) |
-    # "fused" (bit-packed Pallas kernel with on-core PRNG, TPU-only; runs a
-    # fixed 2 * change_times proposal rounds instead of the accept budget)
+    # "fused" (the bit-packed Pallas MH kernel, `ops/pallas/mh_sampler.py`;
+    # GPU only; runs a fixed 2 * change_times proposal rounds instead of the
+    # accept budget)
 
 
-# Per-instance tuned presets (reference `MCPG.py:41-84`). The reference's
-# repeat_times target a 40 GB A100; a v5e chip has 16 GB of HBM and the
-# live set is ~4 bool [B, N] population copies + one f32 [B, N] objective
-# intermediate (~10 bytes/chain-bit), so repeats here keep
-# B * N = chains * repeats * nodes under ~10^9. Chain counts match the
-# reference; quality comes from epochs rather than population width.
+# Per-instance tuned presets with the reference's own population sizes
+# (`MCPG.py:41-84`, sized there for one 40 GB GPU): total_mcmc_num chains of
+# repeat_times repeats each, e.g. 2048 x 512 chains of 2000 nodes on G22.
 GSET_PRESETS = {
     "gset_14": MCPGConfig(total_mcmc_num=512, repeat_times=128, num_ls=8,
                           reset_epoch_num=128, max_epoch_num=30),
-    "gset_22": MCPGConfig(total_mcmc_num=2048, repeat_times=224, num_ls=8,
+    "gset_22": MCPGConfig(total_mcmc_num=2048, repeat_times=512, num_ls=8,
                           reset_epoch_num=256, max_epoch_num=30),
-    "gset_55": MCPGConfig(total_mcmc_num=1024, repeat_times=192, num_ls=8,
+    "gset_55": MCPGConfig(total_mcmc_num=1024, repeat_times=448, num_ls=8,
                           reset_epoch_num=192, max_epoch_num=30),
-    "gset_70": MCPGConfig(total_mcmc_num=768, repeat_times=96, num_ls=8,
+    "gset_70": MCPGConfig(total_mcmc_num=768, repeat_times=288, num_ls=8,
                           reset_epoch_num=320, max_epoch_num=30),
-}
-
-# The reference's 40 GB-GPU repeat counts (`MCPG.py:49-84`), for parity
-# documentation and larger-HBM deployments.
-GSET_PRESETS_40G = {
-    "gset_14": GSET_PRESETS["gset_14"],
-    "gset_22": dataclasses.replace(GSET_PRESETS["gset_22"], repeat_times=512),
-    "gset_55": dataclasses.replace(GSET_PRESETS["gset_55"], repeat_times=448),
-    "gset_70": dataclasses.replace(GSET_PRESETS["gset_70"], repeat_times=288),
 }
 
 
@@ -113,65 +105,23 @@ def _build_steps(env: MaxcutEnv, data: SweepData, cfg: MCPGConfig):
     change_times = cfg.change_times or max(1, num_nodes // 10)
     policy = BernoulliPolicy(num_nodes)
     optimizer = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(cfg.lr))
+    if cfg.sampler == "fused" or cfg.sweep_mode == "packed":
+        require_gpu(False, f"MCPG sampler={cfg.sampler!r} sweep_mode={cfg.sweep_mode!r}")
     if cfg.sweep_mode == "packed":
-        from rlsolver_tpu.ops.pallas.mcpg_sweep import PackedSweepTables
-        from rlsolver_tpu.ops.pallas.weighted_sweep import (
-            WeightedSweepTables,
-            pick_node_chunk,
-            resident_masks_fit,
-        )
-
-        blk_static = 512 if (C * R) % 512 == 0 else C * R
-        packed_chunk = None
-        try:
-            packed_tables = PackedSweepTables.build(env.graph)
-            packed_weighted = False
-            n_masks = 6 if packed_tables.signed else 3
-            if not resident_masks_fit(
-                packed_tables.num_nodes, packed_tables.wpad, n_masks, blk_static
-            ):
-                raise ValueError("dedicated-kernel masks exceed VMEM")
-        except ValueError:
-            # general integer weights, or G55/G70-scale instances whose mask
-            # tables must be streamed: bit-plane kernel (weighted_sweep.py)
-            packed_tables = WeightedSweepTables.build(env.graph)
-            packed_weighted = True
-            n_masks = 1 + len(packed_tables.planes_pos) * (
-                2 if packed_tables.planes_neg else 1
-            )
-            packed_chunk = pick_node_chunk(
-                packed_tables.num_nodes, packed_tables.wpad, n_masks, blk_static
-            )
+        tables = WeightedSweepTables.build(env.graph)
 
     def sample_step(key, probs, start_bits):
         """start_bits bool [R*C, N] -> (mh_samples, ls_bits, cuts [R*C])."""
         k_mh, k_ls = jax.random.split(key)
         if cfg.sampler == "fused":
-            from rlsolver_tpu.ops.pallas.mh_sampler import mh_sample_fused
-
-            seed = jax.random.randint(k_mh, (), 0, jnp.iinfo(jnp.int32).max)
             rounds = max(cfg.num_ls, 2 * change_times)
-            blk = 512 if start_bits.shape[0] % 512 == 0 else start_bits.shape[0]
-            mh = mh_sample_fused(seed, probs, start_bits, rounds, block_chains=blk)
+            mh = mh_sample_fused(seed_from_key(k_mh), probs, start_bits, rounds)
         else:
             mh = metropolis_bitflip_chain(k_mh, probs, start_bits, change_times).samples
         if cfg.sweep_mode == "packed":
-            from rlsolver_tpu.ops.pallas.mcpg_sweep import mcpg_sweep_fused
-            from rlsolver_tpu.ops.pallas.weighted_sweep import (
-                mcpg_sweep_weighted_fused,
+            ls_bits = mcpg_sweep_fused(
+                seed_from_key(k_ls), mh, tables, num_sweeps=cfg.num_ls
             )
-
-            seed = jax.random.randint(k_ls, (), 0, jnp.iinfo(jnp.int32).max)
-            blk = 512 if mh.shape[0] % 512 == 0 else mh.shape[0]
-            if packed_weighted:
-                ls_bits = mcpg_sweep_weighted_fused(
-                    seed, mh, packed_tables, num_sweeps=cfg.num_ls,
-                    block_chains=blk, node_chunk=packed_chunk,
-                )
-            else:
-                ls_bits = mcpg_sweep_fused(
-                    seed, mh, packed_tables, num_sweeps=cfg.num_ls, block_chains=blk
-                )
         elif cfg.sweep_mode == "sequential":
             xt = mcpg_init_values(mh)
             xt = degree_ordered_sweep(k_ls, xt, data, num_sweeps=cfg.num_ls)
@@ -226,6 +176,51 @@ def _build_steps(env: MaxcutEnv, data: SweepData, cfg: MCPGConfig):
     return policy, optimizer, sample_step, reduce_step, update_step
 
 
+def make_sharded_mcpg_step(
+    env: MaxcutEnv, data: SweepData, cfg: MCPGConfig, mesh, axis_name: str = "env"
+):
+    """One data-parallel MCPG round over a 1-D mesh (the counterpart of the
+    reference's NCCL DDP): chains sharded over `axis_name`, policy and
+    optimizer state replicated. Each shard samples its chains with MCPG's
+    `sample_step` (the fused kernels when `cfg` asks for them), the
+    REINFORCE advantage is centred over all shards, and the gradients are
+    psum'd, so the replicated params stay identical on every device.
+
+    Returns (policy, optimizer, step) with the jitted
+    `step(params, opt_state, seed, xs) -> (params, opt_state, ls_bits, cuts)`;
+    `seed` is a replicated uint32 scalar, xs bool [B, N] sharded on B."""
+    from jax.sharding import PartitionSpec as P
+
+    policy, optimizer, sample_step, _, _ = _build_steps(env, data, cfg)
+
+    def step(params, opt_state, seed, xs):
+        key = jax.random.fold_in(
+            jax.random.PRNGKey(seed), jax.lax.axis_index(axis_name)
+        )
+        mh, ls_bits, cuts = sample_step(key, policy.apply(params), xs)
+        energy = env.cg.total_w - 2.0 * cuts
+        count = jax.lax.psum(energy.shape[0], axis_name)
+        value = energy - jax.lax.psum(jnp.sum(energy), axis_name) / count
+
+        def loss_fn(p):
+            return jnp.sum(bernoulli_logp(policy.apply(p), mh) * value) / count
+
+        # under shard_map with check_vma=False each shard's grad holds only
+        # its own chains' term: sum them so every replica takes one update
+        grads = jax.lax.psum(jax.grad(loss_fn)(params), axis_name)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, ls_bits, cuts
+
+    sharded = jax.shard_map(
+        step,
+        mesh=mesh,
+        in_specs=(P(), P(), P(), P(axis_name)),
+        out_specs=(P(), P(), P(axis_name), P(axis_name)),
+        check_vma=False,
+    )
+    return policy, optimizer, jax.jit(sharded)
+
+
 class MCPGLoopState(NamedTuple):
     """Full resumable state for the TrainLoop-driven MCPG run."""
 
@@ -261,7 +256,7 @@ def solve_maxcut_mcpg_runner(
     """
     from rlsolver_tpu.train.runner import LoopConfig, TrainLoop
 
-    env = MaxcutEnv(graph, packed_sweep=cfg.sweep_mode == "packed")
+    env = MaxcutEnv(graph)
     data = SweepData.build(graph)
     C, R = cfg.total_mcmc_num, cfg.repeat_times
     policy, optimizer, sample_step, reduce_step, update_step = _build_steps(
@@ -348,8 +343,7 @@ def solve_maxcut_mcpg(
     `time_budget` (seconds, wall clock from after warm start) stops the
     epoch loop early — the reference's benchmark protocol runs methods under
     a fixed time limit (`README.md:335`)."""
-    # packed sweep_mode also accelerates the warm-start local search
-    env = MaxcutEnv(graph, packed_sweep=cfg.sweep_mode == "packed")
+    env = MaxcutEnv(graph)
     data = SweepData.build(graph)
     C, R = cfg.total_mcmc_num, cfg.repeat_times
     policy, optimizer, sample_step, reduce_step, update_step = _build_steps(env, data, cfg)

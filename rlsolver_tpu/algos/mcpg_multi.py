@@ -54,7 +54,7 @@ class MultiMCPGConfig:
     lr: float = 8e-2
     seed: int = 0
     sampler: str = "scan"  # "scan" (XLA, any backend) | "fused" (bit-packed
-    # Pallas kernel with on-core PRNG; TPU-only, num_vars < 32768)
+    # Pallas kernel with counter-hash randomness; GPU only, num_vars < 2^20)
 
 
 class MultiMCPGResult(NamedTuple):
@@ -66,7 +66,6 @@ class MultiMCPGResult(NamedTuple):
 def solve_mcpg(problem: McpgProblem, cfg: MultiMCPGConfig = MultiMCPGConfig()):
     n = problem.num_vars
     c = cfg.num_chains
-    total = c * cfg.repeat_times
     mh_rounds = max(1, int(cfg.mh_steps_per_var * n))
 
     policy = BernoulliPolicy(n)
@@ -89,11 +88,10 @@ def solve_mcpg(problem: McpgProblem, cfg: MultiMCPGConfig = MultiMCPGConfig()):
         # each chain replicated repeat_times (reference sample_initializer)
         tiled = jnp.tile(chain_bits, (cfg.repeat_times, 1))
         if cfg.sampler == "fused":
+            from rlsolver_tpu.ops.counter_rng import seed_from_key
             from rlsolver_tpu.ops.pallas.mh_sampler import mh_sample_fused
 
-            seed = jax.random.randint(k_mh, (), 0, jnp.iinfo(jnp.int32).max)
-            blk = total if total % 512 != 0 else 512
-            mh = mh_sample_fused(seed, probs, tiled, mh_rounds, block_chains=blk)
+            mh = mh_sample_fused(seed_from_key(k_mh), probs, tiled, mh_rounds)
         else:
             mh = metropolis_bitflip_scan(k_mh, probs, tiled, mh_rounds)
         improved = problem.improve(k_ls, mh)

@@ -7,7 +7,7 @@ multi-agent family: `AgentVDN` (157 LoC, joint Q = sum of per-agent Qs),
 (206, centralized critics over joint obs/actions with per-agent
 deterministic actors).
 
-TPU-first: agents are a leading array axis (vmapped heads over shared
+Accelerator-first: agents are a leading array axis (vmapped heads over shared
 module definitions), the whole update is one jitted step, and replay
 reuses the pytree buffers from `rlsolver_tpu.algos.continuous` /
 `rlsolver_tpu.train.replay`.

@@ -9,7 +9,7 @@ Reference counterparts:
     data-parallel over GPUs: NCCL process group, per-rank env shards,
     DDP gradient all-reduce, `all_reduce` metric aggregation.
 
-TPU-first redesign: the rollout is a `lax.scan` over the horizon (the
+Accelerator-first redesign: the rollout is a `lax.scan` over the horizon (the
 reference steps python-side), GAE is a reverse scan, and the whole
 iteration (rollout + updates) is ONE jitted function. The distributed
 variant runs that function under `shard_map` with envs sharded on the mesh

@@ -12,7 +12,7 @@ the candidate when a one-sided t-test on a held-out eval set is significant
 at bl_alpha, `baselines.py:161-243`), looked up by name through
 `get_reinforce_baseline` (`baselines.py:286`).
 
-TPU-first redesign: baselines are pure functions over explicit pytree
+Accelerator-first redesign: baselines are pure functions over explicit pytree
 state — `eval(state, rewards) -> (values, state)` runs inside the jitted
 train step; `epoch_update(state, params, key)` is the host-side epoch
 callback (the rollout baseline's t-test + snapshot swap). The generic

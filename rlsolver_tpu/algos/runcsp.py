@@ -12,7 +12,7 @@ coloring/maxcut (NEQ), MIS (NAND), and max-2-SAT; `train_*.py` /
 JAX redesign: clauses per relation live in padded [n_r, 2] index arrays;
 one training step unrolls T message-passing iterations inside jit with
 `segment_sum` aggregation; normalization is LayerNorm (BatchNorm inside an
-unrolled RNN is a TPU anti-pattern); boosted prediction = vmap over
+unrolled RNN is an accelerator anti-pattern); boosted prediction = vmap over
 parallel random initial states.
 """
 

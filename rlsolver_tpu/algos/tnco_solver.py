@@ -74,7 +74,7 @@ class TncoMcpgConfig:
     lr: float = 5e-2
     seed: int = 0
     sampler: str = "scan"  # "scan" (XLA, any backend/mesh) | "fused"
-    # (bit-packed Pallas kernel, TPU-only, num_bits < 32768, unsharded)
+    # (bit-packed Pallas kernel, GPU only, num_bits < 2^20, unsharded)
 
 
 class TncoMcpgState(NamedTuple):
@@ -106,13 +106,10 @@ def make_tnco_mcpg_step(env: TncoEnv, cfg: TncoMcpgConfig, axis_name: Optional[s
         )
         tiled = jnp.tile(bits, (cfg.repeat_times, 1))
         if cfg.sampler == "fused" and not axis_name:
+            from rlsolver_tpu.ops.counter_rng import seed_from_key
             from rlsolver_tpu.ops.pallas.mh_sampler import mh_sample_fused
 
-            seed = jax.random.randint(k_mh, (), 0, jnp.iinfo(jnp.int32).max)
-            blk = tiled.shape[0] if tiled.shape[0] % 512 != 0 else 512
-            mh = mh_sample_fused(
-                seed, probs, tiled, cfg.mh_rounds, block_chains=blk
-            )
+            mh = mh_sample_fused(seed_from_key(k_mh), probs, tiled, cfg.mh_rounds)
         else:
             mh = metropolis_bitflip_scan(k_mh, probs, tiled, cfg.mh_rounds)
 

@@ -10,7 +10,7 @@ otherwise (`perturbation.py:choose_perturbation`), each perturbation flip
 getting a random tabu tenure in `[phi_min, phi_max]`
 (`operator.py:perturb_operator`).
 
-TPU-first redesign (not a translation):
+Redesign for the accelerator (not a translation):
 
 - All chains run the loop in lockstep inside one jitted `lax.scan`; each
   scan step = exactly one flip per chain, so the per-step op set is fixed
@@ -59,8 +59,6 @@ class BLSConfig:
     p0: float = 0.8  # directed-perturbation probability floor
     desc_tenure: int = 20  # descent-flip tenure upper bound (see module doc)
     seed: int = 0
-    packed_sweep: bool = False  # used for the warm-start descent sweeps only;
-    # the tabu core is gather/elementwise and needs no packed kernels
 
 
 def solve_maxcut_bls(
@@ -74,7 +72,7 @@ def solve_maxcut_bls(
     `record(round_idx, best_cut)` is called after every round (for
     cut-vs-time curves); `time_budget` (seconds) stops the outer python
     loop early once exceeded."""
-    env = MaxcutEnv(graph, packed_sweep=cfg.packed_sweep)
+    env = MaxcutEnv(graph)
     n = graph.num_nodes
     adj = env.cg.adj
     if adj is None:

@@ -3,7 +3,7 @@
 Reference counterpart: `rlsolver/methods_problem_specific/knapsack/` —
 brute force, branch & bound, dynamic programming, FPTAS, greedy, SA.
 
-TPU-first redesign: the DP table sweep is a `lax.scan` over items with the
+Accelerator-first redesign: the DP table sweep is a `lax.scan` over items with the
 whole capacity axis as one vector op (the reference fills the table with
 python loops); brute force enumerates all 2^n subsets as a batched device
 computation; SA is a batched annealer over many chains. Branch & bound and

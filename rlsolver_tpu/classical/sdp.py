@@ -1,12 +1,12 @@
-"""Goemans-Williamson-style maxcut relaxation, TPU-native.
+"""Goemans-Williamson-style maxcut relaxation, as matmuls on the device.
 
 The reference solves the GW semidefinite program with cvxpy + random
 hyperplane rounding (`rlsolver/methods/sdp.py:29-86`). A generic SDP solver
-is a poor fit for TPUs; instead this uses the Burer-Monteiro low-rank
+is a poor fit for an accelerator; instead this uses the Burer-Monteiro low-rank
 factorization: maximize
     sum_{ij} w_ij (1 - v_i . v_j) / 4   over unit vectors v_i in R^k,
 which for k >= sqrt(2n) shares the SDP's optimum, via projected (Riemannian)
-gradient ascent — all matmuls on the MXU — followed by batched random
+gradient ascent — all matmuls — followed by batched random
 hyperplane rounding. Typically matches or beats the cvxpy pipeline and runs
 orders of magnitude faster.
 """

@@ -7,7 +7,7 @@ single-threaded "lesson" implementations of christofides, nearest neighbor
 (`s_tabu.py`), GA (`ga.py`), SA (`sa.py`), and greedy Karp-Steele patching
 (`gksp.py`).
 
-TPU-first redesign: tour-improvement (2-opt) is a batched best-improvement
+Accelerator-first redesign: tour-improvement (2-opt) is a batched best-improvement
 sweep — the full [N, N] move-delta matrix is computed as dense array ops and
 vmapped over sims, instead of the reference's nested python loops. The
 construction heuristics and matching-based methods (christofides, GKSP) are
@@ -172,7 +172,7 @@ def karp_steele_tour(dist: np.ndarray) -> np.ndarray:
 # ------------------------------------------------------- batched local search
 def _move_deltas(tour: jax.Array, dist: jax.Array) -> jax.Array:
     """2-opt delta matrix, f32 [N, N]: delta[i, j] (i < j) = change from
-    reversing tour[i..j]. Dense array ops — the MXU-friendly formulation of
+    reversing tour[i..j]. Dense array ops — the matmul-friendly formulation of
     the reference's double loop (`opt_2.py:25-47`)."""
     n = tour.shape[0]
     prev = jnp.roll(tour, 1)  # tour[i-1]

@@ -75,7 +75,7 @@ class SimConfig:
 
     num_sims: int = 1024
     dtype: str = "bfloat16"  # matmul storage dtype for dense objectives
-    # "dense" = (x A) x matmul on MXU; "sparse" = edge-gather segment sum;
+    # "dense" = (x A) x matmul; "sparse" = edge-gather segment sum;
     # "auto" picks by density.
     objective_mode: str = "auto"
 

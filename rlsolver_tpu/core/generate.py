@@ -58,6 +58,38 @@ def graph_from_name(name: str) -> Graph:
     return generate_graph(gtype, num_nodes, seed=seed, name=name)
 
 
+def gnm_graph(
+    num_nodes: int = 2000,
+    num_edges: int = 19990,
+    seed: int = 22,
+    signed: bool = False,
+    name: str = "",
+) -> Graph:
+    """Seeded G(n, m) random graph: `num_edges` distinct node pairs drawn
+    uniformly with numpy. The defaults give a G22-class instance (Gset G22
+    has 2000 nodes and 19990 unit-weight edges); `signed=True` draws each
+    weight from {-1, +1} with equal odds, the G27-G31 shape."""
+    rng = np.random.default_rng(seed)
+    keys = np.empty(0, np.int64)
+    while keys.size < num_edges:
+        a, b = rng.integers(0, num_nodes, size=(2, 2 * (num_edges - keys.size)))
+        fresh = np.minimum(a, b) * num_nodes + np.maximum(a, b)
+        fresh = fresh[a != b]
+        # keep first appearances in draw order, so the edge set depends
+        # only on the seed and not on how the draws were batched
+        merged = np.concatenate([keys, fresh])
+        _, first = np.unique(merged, return_index=True)
+        keys = merged[np.sort(first)][:num_edges]
+    weights = rng.choice((-1.0, 1.0), size=num_edges) if signed else np.ones(num_edges)
+    edges = [
+        (int(k // num_nodes), int(k % num_nodes), float(w))
+        for k, w in zip(keys, weights)
+    ]
+    if not name:
+        name = f"gnm_{num_nodes}_{num_edges}_{'pm1' if signed else 'unit'}_s{seed}"
+    return Graph.from_edge_list(num_nodes, edges, name=name)
+
+
 def generate_tsp_coords(
     batch: int,
     num_nodes: int,

@@ -7,7 +7,7 @@ adjacency (`rlsolver/methods/util.py:312,343`), per-node neighbor index lists
 (`envs/env_L2A.py:46-52`). This module provides the same three layouts as
 static numpy arrays suitable for closing over in jitted JAX programs:
 
-  * dense symmetric adjacency  -> MXU matmul objectives
+  * dense symmetric adjacency  -> matmul objectives
   * flat edge arrays (n0, n1, w) -> sparse gather/segment-sum objectives
   * padded neighbor table      -> sequential/colored local-search sweeps
 

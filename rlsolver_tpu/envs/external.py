@@ -4,7 +4,7 @@ Reference counterpart: `rlsolver/elegantrl/envs/CustomGymEnv.py` (gym
 wrapper normalizing reset/step signatures) and the process-per-env
 `VecEnv`/`SubEnv` vectorization (`elegantrl/train/config.py:212-313`).
 
-On TPU, python envs cannot live inside the jitted program; the honest
+On an accelerator, python envs cannot live inside the jitted program; the honest
 equivalent is a host-side batcher: K python env instances stepped in a
 loop (the reference steps them in K processes — pure dispatch overhead at
 these env sizes), exposing the same batched numpy API our trainers use

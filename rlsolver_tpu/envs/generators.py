@@ -5,7 +5,7 @@ Reference counterpart: `rlsolver/methods/ECO_S2V/src/envs/util_envs.py:62-353`
 `ValidationGraphGenerator` with the fixed `VALIDATION_SEED=10`
 (`ECO_S2V/config.py:37`), `SetGraphGenerator`, `PerturbedGraphGenerator`).
 
-TPU-first differences: generators return `Graph` objects (or dense
+Accelerator-first differences: generators return `Graph` objects (or dense
 adjacencies) and are *explicitly seeded* — the training loop owns its RNG
 stream, so runs are reproducible and resumable; edge-weight perturbation is
 symmetric Gaussian noise masked to existing edges, matching the reference's

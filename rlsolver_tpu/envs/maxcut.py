@@ -2,11 +2,11 @@
 
 The canonical vectorized simulator of the reference
 (`rlsolver/envs/env_L2A.py:24-116`, replicated in env_MCPG/env_k_spin/
-env_PPO), redesigned TPU-first:
+env_PPO), redesigned for accelerators:
 
   * state is `xs: bool[num_sims, num_nodes]`, a pure value — no in-place
     tensors, no lazily re-broadcast index tensors;
-  * the objective is one MXU matmul (dense) or an edge gather (sparse),
+  * the objective is one matmul (dense) or an edge gather (sparse),
     see `rlsolver_tpu.ops.cut`;
   * local search keeps flip gains *incrementally* (rank-1 updates) instead of
     recomputing per-node objective sums, and runs entirely inside jit.
@@ -46,8 +46,6 @@ class MaxcutEnv:
         graph: Graph,
         dtype=jnp.bfloat16,
         mode: str = "auto",
-        packed_sweep: bool = False,
-        packed_interpret: bool = False,
     ):
         self.graph = graph
         self.num_nodes = graph.num_nodes
@@ -56,48 +54,6 @@ class MaxcutEnv:
         with_dense = mode != "sparse"
         self.cg = cut_ops.CutGraph.build(graph, dtype=dtype, with_dense=with_dense)
         self.if_maximize = True
-        # opt-in bit-packed Pallas 1-flip sweep (TPU-only unless
-        # packed_interpret; bit-exact vs the f32 path). {0, +-1}-weight
-        # graphs use the single-plane kernel (ops/pallas/mcpg_sweep.py),
-        # general integer weights the bit-plane one
-        # (ops/pallas/weighted_sweep.py).
-        self._adj_packed = None
-        self._adj_planes = None
-        self._sweep_chunk = None
-        self._packed_interpret = packed_interpret
-        if packed_sweep:
-            from rlsolver_tpu.ops.pallas.mcpg_sweep import pack_adjacency
-            from rlsolver_tpu.ops.pallas.weighted_sweep import (
-                WeightedAdjPlanes,
-                pick_node_chunk,
-                resident_masks_fit,
-            )
-
-            try:
-                packed = pack_adjacency(graph)
-                n_masks = 1 if packed[1] is None else 2
-                wpad = packed[0].shape[1]
-                if not resident_masks_fit(graph.num_nodes, wpad, n_masks, 512):
-                    raise ValueError("adjacency masks exceed VMEM")
-                self._adj_packed = packed
-            except ValueError:
-                # general integer weights, or VMEM-exceeding N: bit-plane
-                # kernel with streamed mask chunks (weighted_sweep.py)
-                try:
-                    planes = WeightedAdjPlanes.build(graph)
-                    n_masks = len(planes.planes_pos) * (
-                        2 if planes.planes_neg else 1
-                    )
-                    self._sweep_chunk = pick_node_chunk(
-                        graph.num_nodes, planes.wpad, n_masks, 512
-                    )
-                    self._adj_planes = planes
-                except ValueError:
-                    # no VMEM-feasible chunking for this (N, wpad) either:
-                    # leave both packed paths unset so sweep_1flip falls
-                    # through to the documented any-weight XLA sweep.
-                    self._adj_planes = None
-                    self._sweep_chunk = None
 
     # ------------------------------------------------------------------ state
     def random_xs(self, key: jax.Array, num_sims: int) -> jax.Array:
@@ -170,25 +126,6 @@ class MaxcutEnv:
         """One sequential greedy 1-flip sweep over all nodes (all sims in
         parallel), with rank-1 incremental gain updates. Strict-improvement
         accepts match `update_xs_by_vs`. Sign convention: bit 1 -> sign +1."""
-        if self._adj_packed is not None:
-            from rlsolver_tpu.ops.pallas.mcpg_sweep import sweep_1flip_packed
-
-            blk = 512 if xs.shape[0] % 512 == 0 else xs.shape[0]
-            out = sweep_1flip_packed(
-                xs, self._adj_packed, block_chains=blk,
-                interpret=self._packed_interpret,
-            )
-            return out, self.obj(out)
-        if self._adj_planes is not None:
-            from rlsolver_tpu.ops.pallas.weighted_sweep import sweep_1flip_weighted
-
-            blk = 512 if xs.shape[0] % 512 == 0 else xs.shape[0]
-            out = sweep_1flip_weighted(
-                xs, self._adj_planes, block_chains=blk,
-                node_chunk=self._sweep_chunk,
-                interpret=self._packed_interpret,
-            )
-            return out, self.obj(out)
         if self.cg.adj is None:
             raise NotImplementedError("sweep_1flip needs the dense adjacency")
         s = cut_ops.signs_from_bits(xs, jnp.float32)

@@ -18,7 +18,7 @@ Reference counterpart: `rlsolver/methods/L2A/TNCO_simulator.py:649-910`
     `num_bases = ceil(log2 run_edges)` bits per edge (policy methods operate
     here, `TNCO_simulator.py:684-688`).
 
-TPU-first redesign:
+Accelerator-first redesign:
   * the contraction simulation is a `lax.scan` over the `run_edges` steps
     with a batched cluster state (`dims [B, N, N] f32`, `bool [B, N, N]`),
     replacing the reference's per-step python loop over envs
@@ -28,7 +28,7 @@ TPU-first redesign:
     the final log10-sum-exp2 uses the reference's max-shift trick
     (`get_multiple_times_vectorized` `TNCO_simulator.py:797-804`) in f32 on
     device, with an `accurate` host path in float64 for validation
-    (TPUs have no native f64 — SURVEY.md section 7.3).
+    (the device path stays in f32 — SURVEY.md section 7.3).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Reference counterpart: `find_best_num_sims_maxcut`
 prints steps/sec and GPU RAM, and reports the knee. Same capability here
 as a reusable helper: time any `fn(num_sims) -> jittable work` over a
 sweep of batch sizes and return the throughput-optimal one. Used to pick
-`num_sims` for MCPG/local-search runs on a new TPU generation.
+`num_sims` for MCPG/local-search runs on a new accelerator generation.
 """
 
 from __future__ import annotations

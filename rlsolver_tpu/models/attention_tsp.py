@@ -6,12 +6,12 @@ query = graph mean + current + first node embeddings, cross-attention over
 encodings, logits = C * tanh(enc . ctx / sqrt(D)) with visited-mask) and
 `layers.py` (attention layers with 512-wide FF).
 
-TPU-first: one flax module with separate `encode` (runs once per instance,
+Accelerator-first: one flax module with separate `encode` (runs once per instance,
 shared across the POMO axis) and `decode_step` (runs inside the rollout
 `lax.scan`); all POMO starts are a batched axis, never physically expanded
 per step (the reference's "structured batching", `trainer.py:38-49`).
 Normalization is LayerNorm (instead of the reference's BatchNorm) — batch
-statistics inside a jitted scan are an anti-pattern on TPU.
+statistics inside a jitted scan are an anti-pattern under jit.
 """
 
 from __future__ import annotations

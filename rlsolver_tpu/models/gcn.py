@@ -4,7 +4,7 @@ actor-critic backbone).
 Reference counterparts: `PIGNN/model.py:9-61` (GCN/GAT node classifier
 trained on the relaxed QUBO loss) and `S2V_PPO/model.py` (torch_geometric
 GCN actor-critic). Implemented as dense symmetric-normalized adjacency
-matmuls (D^-1/2 (A+I) D^-1/2 · H · W) — MXU-friendly, no sparse gathers.
+matmuls (D^-1/2 (A+I) D^-1/2 · H · W) — matmul-friendly, no sparse gathers.
 """
 
 from __future__ import annotations

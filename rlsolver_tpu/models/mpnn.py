@@ -5,12 +5,12 @@ Capability-equivalent redesign of the reference MPNN
 refined by `n_layers` rounds of degree-normalized neighborhood aggregation,
 and read out to one Q-value per node with a global mean-pooled context.
 
-TPU-first differences from the reference (deliberate, not drift):
+Accelerator-first differences from the reference (deliberate, not drift):
   * the reference materializes a [B, N, N, obs+1] per-edge feature tensor for
     its edge-embedding layer; here the edge context is computed as
     degree-normalized matmul aggregation of neighbor input features plus a
     normalized-degree channel — identical information flow, O(N^2) matmul
-    work on the MXU instead of O(N^2 * obs) HBM traffic;
+    work on the tensor cores instead of O(N^2 * obs) device-memory traffic;
   * the adjacency is an explicit argument (static per instance), not packed
     inside the observation tensor (`mpnn.py:53-55`);
   * computation can run in bfloat16 (the reference's `use_tensor_core` fp16

@@ -1,44 +1,31 @@
-"""Policy networks for Pattern-II (QUBO policy-vector) methods.
+"""MCPG's Bernoulli policy (Pattern II), in plain JAX.
 
-  * BernoulliPolicy — MCPG's `Simpler` (`rlsolver/methods/MCPG.py:169-186`):
-    a free per-node logit vector mapped through sigmoid and squashed into
-    (0.2, 0.8) so no bit saturates.
-  * PolicyMLP — L2A's `PolicyMLP` (`rlsolver/methods/L2A/network.py:124-143`):
-    maps the current solution-probability vector to a refined one.
+BernoulliPolicy is MCPG's `Simpler` (`rlsolver/methods/MCPG.py:169-186`):
+a free per-node logit vector mapped through sigmoid and squashed into
+(0.2, 0.8) so no bit saturates. It keeps the flax calling convention —
+`init(key) -> {"params": {"logits": [N]}}`, `apply(params) -> probs [N]` —
+without depending on flax, so the MCPG path imports only JAX and optax.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 
-class BernoulliPolicy(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class BernoulliPolicy:
     """Per-node Bernoulli probabilities, squashed to (lo, lo + span)."""
 
     num_nodes: int
     lo: float = 0.2
     span: float = 0.6
 
-    @nn.compact
-    def __call__(self) -> jax.Array:
-        logits = self.param("logits", nn.initializers.zeros, (self.num_nodes,))
-        return nn.sigmoid(logits) * self.span + self.lo
+    def init(self, key: jax.Array) -> dict:
+        del key  # zero logits: every bit starts at probability lo + span / 2
+        return {"params": {"logits": jnp.zeros((self.num_nodes,), jnp.float32)}}
 
-
-class PolicyMLP(nn.Module):
-    """Solution-probability refiner: [B, N] -> [B, N] in (0, 1)."""
-
-    num_nodes: int
-    hidden: Sequence[int] = (256, 256)
-
-    @nn.compact
-    def __call__(self, probs: jax.Array) -> jax.Array:
-        x = probs
-        for i, width in enumerate(self.hidden):
-            x = nn.relu(nn.Dense(width, name=f"hidden_{i}")(x))
-        x = nn.Dense(self.num_nodes, name="out")(x)
-        return nn.sigmoid(x)
+    def apply(self, params: dict) -> jax.Array:
+        return jax.nn.sigmoid(params["params"]["logits"]) * self.span + self.lo

@@ -6,8 +6,8 @@ Reference counterpart: the vendored rl4co S2V model zoo —
 the decoder picks one node per step) trained through
 `models/rl/reinforce/reinforce.py` with the baseline family.
 
-TPU-first redesign: the encoder is a structure2vec message-passing stack
-(dense adjacency matmuls on the MXU, Dai et al. 2017 — the "S2V" in
+Accelerator-first redesign: the encoder is a structure2vec message-passing stack
+(dense adjacency matmuls on the tensor cores, Dai et al. 2017 — the "S2V" in
 S2V-DQN), the decoder is a per-step masked pointer head, and the whole
 construction episode is ONE `lax.scan` inside the jitted train step — no
 per-step host round trips. Construction semantics: all nodes start on side
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 class S2VEncoder(nn.Module):
     """structure2vec embedding over a dense adjacency: per layer
     h <- relu(W1 x + W2 (A h) + W3 (A 1)) — neighbor aggregation is a
-    dense [B, N, N] @ [B, N, D] matmul (MXU-shaped)."""
+    dense [B, N, N] @ [B, N, D] matmul (matmul-shaped)."""
 
     embed_dim: int = 64
     num_layers: int = 3

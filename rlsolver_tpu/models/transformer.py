@@ -10,7 +10,7 @@ Reference counterparts:
     (as per-node +-1 two-channel "probabilities") to refined per-node flip
     logits, plus a value head summed over nodes.
 
-TPU-first notes: both are standard pre-norm-free transformer blocks built on
+Notes: both are standard pre-norm-free transformer blocks built on
 flax MHA (the reference's per-head group_concat interleaving is an artifact
 of torch's packed MultiheadAttention and is not reproduced); all shapes are
 batch-major [B, N, ...] rather than torch's seq-major.

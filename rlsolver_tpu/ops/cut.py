@@ -4,7 +4,7 @@ Two formulations, both present in the reference (SURVEY.md section 7.1
 decision 2):
 
   * dense: cut(x) = W/2 - s A s^T / 4 with s = 2x-1, computed as one
-    [B,N]x[N,N] matmul on the MXU (reference's fp16 "tensor-core" path,
+    [B,N]x[N,N] matmul on the tensor cores (reference's fp16 "tensor-core" path,
     `rlsolver/envs/env_ISCO.py:436-444`). Default for N up to ~10k.
   * sparse: cut(x) = sum_e w_e * (x[n0_e] XOR x[n1_e]) via gathers along the
     edge axis (reference's edge-index path, `rlsolver/envs/env_L2A.py:54-66`).
@@ -68,7 +68,7 @@ def signs_from_bits(xs: jax.Array, dtype=jnp.bfloat16) -> jax.Array:
 
 # ------------------------------------------------------------------ objective
 def cut_dense(xs: jax.Array, cg: CutGraph) -> jax.Array:
-    """Batched cut value via MXU matmul. xs: bool/int [B, N] -> f32 [B]."""
+    """Batched cut value via one matmul. xs: bool/int [B, N] -> f32 [B]."""
     s = signs_from_bits(xs, cg.adj.dtype)
     sa = jnp.dot(s, cg.adj, preferred_element_type=jnp.float32)  # [B, N]
     quad = jnp.sum(sa * s.astype(jnp.float32), axis=-1)  # s A s^T
@@ -89,9 +89,9 @@ def cut_value(xs: jax.Array, cg: CutGraph, mode: str = "auto") -> jax.Array:
 
 
 def _prefer_dense(cg: CutGraph) -> bool:
-    # Dense matmul does n^2 bf16 MACs on the MXU; sparse does ~2m gathers on
-    # the VPU. The MXU's ~100x MAC advantage makes dense win except for very
-    # sparse graphs.
+    # Dense matmul does n^2 bf16 MACs on the tensor cores; sparse does ~2m
+    # gathers. The rule keeps dense except for very sparse graphs; its
+    # crossover was never measured on the GPU (ROADMAP A5).
     n = cg.num_nodes
     m = cg.n0.shape[0]
     return n * n <= 256 * m

@@ -1,65 +1,33 @@
-"""Pallas TPU kernels for the hot sampling loops.
+"""Pallas kernels (Triton route) for MCPG's two hot loops on the GPU.
 
-`mh_sampler` holds the Metropolis-Hastings bit-flip sampler family: the
-f32 VMEM-resident kernel, the bit-packed variants, and the production
-`mh_sample_fused` (bit-packed chains + on-core PRNG + MXU threshold
-lookup, ~18x the XLA scan at G22-class shapes — see the module docstring
-for measured numbers). The injected-randomness variants are bit-exact
-against their XLA twins and run under interpret mode on CPU.
+`mh_sampler.mh_sample_fused` runs the Metropolis-Hastings proposal rounds
+and `mcpg_sweep.mcpg_sweep_fused` the degree-ordered local-search sweeps,
+each on bit-packed chains held in registers, with randomness from the
+shared counter hash (`ops/counter_rng.py`). Each has a plain XLA twin
+(`mh_sample_reference`, `mcpg_sweep_reference`) that it matches bit for
+bit; the CPU tests run the kernels in interpret mode.
 """
 
 from rlsolver_tpu.ops.pallas.mcpg_sweep import (
-    PackedSweepTables,
-    mcpg_sweep_fused,
-    mcpg_sweep_packed,
-    mcpg_sweep_reference,
-    pack_adjacency,
-    sweep_1flip_packed,
-)
-from rlsolver_tpu.ops.pallas.weighted_sweep import (
-    WeightedAdjPlanes,
     WeightedSweepTables,
-    pick_node_chunk,
-    resident_masks_fit,
-    mcpg_sweep_weighted,
-    mcpg_sweep_weighted_fused,
-    sweep_1flip_weighted,
+    mcpg_sweep_fused,
+    mcpg_sweep_reference,
+    sweep_noise,
 )
 from rlsolver_tpu.ops.pallas.mh_sampler import (
-    make_proposal_stream,
-    make_round_randoms,
-    mh_reference,
-    mh_reference_stream,
     mh_sample_fused,
-    mh_sample_packed,
-    mh_sample_pallas,
-    mh_sample_stream,
+    mh_sample_reference,
     pack_bits,
     unpack_bits,
 )
 
 __all__ = [
-    "PackedSweepTables",
-    "mcpg_sweep_fused",
-    "mcpg_sweep_packed",
-    "mcpg_sweep_reference",
-    "pack_adjacency",
-    "sweep_1flip_packed",
-    "WeightedAdjPlanes",
     "WeightedSweepTables",
-    "mcpg_sweep_weighted",
-    "mcpg_sweep_weighted_fused",
-    "sweep_1flip_weighted",
-    "pick_node_chunk",
-    "resident_masks_fit",
-    "make_proposal_stream",
-    "make_round_randoms",
-    "mh_reference",
-    "mh_reference_stream",
+    "mcpg_sweep_fused",
+    "mcpg_sweep_reference",
+    "sweep_noise",
     "mh_sample_fused",
-    "mh_sample_packed",
-    "mh_sample_pallas",
-    "mh_sample_stream",
+    "mh_sample_reference",
     "pack_bits",
     "unpack_bits",
 ]

@@ -1,83 +1,103 @@
-"""MCPG's degree-ordered sequential sweep as a bit-packed Pallas TPU kernel.
+"""MCPG's degree-ordered local-search sweep: one Pallas kernel for Hopper.
 
 The sampler's inner loop (`sampler_func`, reference
 `rlsolver/methods/MCPG.py:120-166`) visits nodes in descending-degree order
-and sets x_i to the anti-majority of its neighbors' current values, with the
-first sweep's mixed value domain: already-processed nodes contribute their
-{0, 1} bit, unprocessed ones contribute 2x - 0.5 in {-0.5, 1.5}
+and sets x_i to the anti-majority of its neighbours' current values, with
+the first sweep's mixed value domain: already-processed nodes contribute
+their {0, 1} bit, unprocessed ones 2x - 0.5 in {-0.5, 1.5}
 (`MCPG.py:131-141`). The XLA formulation
 (`rlsolver_tpu.ops.sweeps.degree_ordered_sweep`) is a `lax.scan` of padded
-neighbor gathers over the [B, N+1] f32 state.
+neighbour gathers over a [B, N+1] f32 state: N * num_sweeps small kernels.
 
-This kernel exploits that everything in the sweep is derivable from the
-current *bits*: pack chains to int32 words ([BLK, N/32] resident in VMEM)
-and precompute, per sweep step k (node i = order[k]),
+This kernel (Pallas through Triton) runs the whole sweep in one program per
+block of chains, with the chains bit-packed (32 nodes per int32) in
+registers. Integer weights are split into k signed bit-planes,
+|w| = sum_b 2^b bit_b, so each weighted neighbour sum is a static sum of
+popcounts,
 
-  * m_proc[k]   — neighbors of i earlier in the order (already rewritten),
-  * m_unproc[k] — neighbors of i later in the order (still original),
+    nbr_sum = sum_b 2^b (popcount(x & pos_b[k]) - popcount(x & neg_b[k])),
 
-as static bit masks. The neighbor sum of the mixed domain is then
+with unit weights one plane and {0, +-1} weights one plane of each sign.
+One packed `earlier[k]` table (bit j set iff node j precedes step k in the
+order) gives the first sweep's mixed domain: proc + 2*unproc =
+2*pc_all - pc_proc, and thr1[k] = (wdeg + ns)/2 + 0.5 * U_k folds in the
+-0.5 of the U_k unprocessed neighbours. Mask rows [WPAD] are read from
+device memory at each node step; every chain of a program reads the same
+row, so it is served from cache.
 
-  nbr_sum = popcount(x & m_proc) + 2 * popcount(x & m_unproc) - 0.5 * U_k
-
-with U_k = |m_unproc[k]| static, so the accept test
-`nbr_sum + u * ns < (wdeg + ns) / 2` becomes a popcount compare against the
-precomputed threshold thr1[k] = (wdeg_i + ns)/2 + 0.5 * U_k. Sweeps >= 2
-see an all-{0,1} state and use m_all = m_proc | m_unproc with
-thr2[k] = (wdeg_i + ns)/2.
-
-Supports unit-weight graphs (one bit-plane per mask) and {0, +-1}-weight
-graphs — half the real Gset suite (G11-G13, G32-G34, G56, G57, ...) — via a
-second bit-plane per mask holding the negative edges: each weighted
-neighbor sum is then a signed popcount difference
-popcount(x & m_pos) - popcount(x & m_neg), still exact integer arithmetic.
-General-weight graphs fall back to the XLA sweep.
-
-All f32 quantities involved are exact (integers and halves), so the
-injected-noise variant is bit-exact against its XLA twin
-(`mcpg_sweep_reference`, tested in interpret mode), and the twin with zero
-noise is provably identical to `degree_ordered_sweep(noise_scale=0)`
-(tested). The production variant draws u16 noise from the on-core PRNG
-(TPU-only, like `mh_sample_fused`).
-
-Measured (TPU v5e-1, G22-class graph, 2026-08): at 8k chains 941M
-node-updates/s vs the XLA sweep's 867M (XLA pipelines the gathers well
-while the state is cache-sized); at 256k chains — the scale of the
-reference's gset presets (up to 1M chains, `MCPG.py:49-84`) — 698M vs 41M
-(17x), and the 32x smaller bit-packed state is what lets those presets fit
-16 GB of HBM at all.
+Noise is the shared counter hash, u16 = hash_u32(seed, chain, s*N + k), so
+the kernel is bit-exact against its XLA twin `mcpg_sweep_reference` fed the
+same draws (`sweep_noise`): every quantity compared is an exact integer or
+half, plus u16 * ns / 65536, identically rounded on both sides.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from rlsolver_tpu.core.graph import Graph
-from rlsolver_tpu.ops.pallas.mh_sampler import pack_bits, unpack_bits
+from rlsolver_tpu.ops.counter_rng import hash_u32
+from rlsolver_tpu.ops.pallas.mh_sampler import (
+    kernel_block,
+    pack_padded,
+    pow2_words,
+    require_gpu,
+    unpack_bits,
+)
+
+MAX_ABS_WEIGHT = 1 << 15  # keeps every popcount sum far below 2^24 (exact f32)
 
 
-class PackedSweepTables(NamedTuple):
-    """Static per-instance tables, in sweep (descending-degree) order.
+def _integer_weights(graph: Graph) -> np.ndarray:
+    adj = np.asarray(graph.adjacency_dense(), np.float64)
+    iw = np.rint(adj)
+    if not np.array_equal(adj, iw):
+        raise ValueError("packed sweep requires integer edge weights")
+    w_max = int(np.abs(iw).max()) if iw.size else 0
+    if w_max >= MAX_ABS_WEIGHT:
+        raise ValueError(f"|weight| must be < {MAX_ABS_WEIGHT}, got {w_max}")
+    if w_max == 0:
+        raise ValueError("graph has no edges")
+    return iw.astype(np.int64)
 
-    The `*_neg` planes are None for unit-weight graphs and hold the
-    negative-edge bit masks for {0, +-1}-weight graphs (signed popcounts)."""
+
+def _pack_rows(rows: np.ndarray, wpad: int) -> np.ndarray:
+    """bool [R, N] -> packed little-endian int32 [R, wpad]."""
+    r, n = rows.shape
+    padded = np.zeros((r, wpad * 32), bool)
+    padded[:, :n] = rows
+    weights = 1 << np.arange(32, dtype=np.int64)
+    words = (padded.reshape(r, wpad, 32) * weights).sum(axis=2)
+    return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["nodes", "thr1", "thr2", "masks"],
+    meta_fields=["k_planes", "has_neg"],
+)
+@dataclasses.dataclass(frozen=True)
+class WeightedSweepTables:
+    """Static per-instance tables for the sweep, rows in sweep
+    (descending-degree) order. A pytree whose static fields (k_planes,
+    has_neg) select the kernel body, so tables ride through jit as
+    arguments. `mcpg_sweep_reference` reads only nodes/thr1/thr2."""
 
     nodes: jax.Array  # [N] int32 node ids (sweep order)
-    m_proc: jax.Array  # [N, WPAD] int32 earlier-neighbor masks (sweep 1)
-    m_unproc: jax.Array  # [N, WPAD] int32 later-neighbor masks (sweep 1)
-    m_all: jax.Array  # [N, WPAD] int32 all-neighbor masks (sweeps >= 2)
-    thr1: jax.Array  # [N] f32 first-sweep thresholds
+    thr1: jax.Array  # [N] f32 first-sweep thresholds (incl. +0.5 * U_k)
     thr2: jax.Array  # [N] f32 later-sweep thresholds
-    m_proc_neg: Optional[jax.Array] = None  # [N, WPAD] negative-edge planes
-    m_unproc_neg: Optional[jax.Array] = None
-    m_all_neg: Optional[jax.Array] = None
+    # [1 + k (+ k), N, WPAD] int32: the earlier-in-order masks, then the
+    # k positive bit-planes, then (signed graphs only) the k negative ones
+    masks: jax.Array
+    k_planes: int
+    has_neg: bool
 
     @property
     def num_nodes(self) -> int:
@@ -85,398 +105,163 @@ class PackedSweepTables(NamedTuple):
 
     @property
     def wpad(self) -> int:
-        return self.m_proc.shape[1]
-
-    @property
-    def signed(self) -> bool:
-        return self.m_proc_neg is not None
+        return self.masks.shape[2]
 
     @staticmethod
-    def build(graph: Graph) -> "PackedSweepTables":
+    def build(graph: Graph) -> "WeightedSweepTables":
+        iw = _integer_weights(graph)
         n = graph.num_nodes
-        adj = np.asarray(graph.adjacency_dense())
-        if not np.all(np.isin(adj, (-1.0, 0.0, 1.0))):
-            raise ValueError(
-                "packed sweep requires a unit-weight or {0, +-1}-weight graph"
-            )
-        signed = bool(np.any(adj < 0))
         order = np.asarray(graph.degree_sorted_nodes(descending=True))
-        pos = np.empty(n, np.int64)
-        pos[order] = np.arange(n)
-        earlier = pos[None, :] < np.arange(n)[:, None]  # [N, N]
-
-        def planes(a: np.ndarray):
-            a_ord = a[order]  # [N steps, N nodes]
-            # nodes are never their own neighbors (no self loops in Graph)
-            return a_ord & earlier, a_ord & ~earlier, a_ord
-
-        mp, mu, ma = planes(adj > 0)
-        u_cnt = mu.sum(axis=1).astype(np.float64)
-        if signed:
-            mpn, mun, man = planes(adj < 0)
-            u_cnt -= mun.sum(axis=1)
+        pos_of = np.empty(n, np.int64)
+        pos_of[order] = np.arange(n)
+        a_ord = iw[order]  # [N steps, N node ids]
+        earlier = pos_of[None, :] < np.arange(n)[:, None]  # [N, N]
+        u_cnt = (a_ord * ~earlier).sum(axis=1).astype(np.float64)
         wdeg = np.asarray(graph.weighted_degrees())[order].astype(np.float64)
-        # noise-free thresholds; the runtime adds noise_scale / 2
-        base = wdeg / 2.0
-        w = (n + 31) // 32
-        wpad = max(128, -(-w // 128) * 128)
-
-        def pack(rows: np.ndarray) -> jax.Array:
-            padded = np.zeros((rows.shape[0], wpad * 32), bool)
-            padded[:, :n] = rows
-            bits = padded.reshape(rows.shape[0], wpad, 32)
-            weights = (1 << np.arange(32, dtype=np.int64))[None, None, :]
-            words = (bits * weights).sum(axis=2)
-            return jnp.asarray((words & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
-
-        return PackedSweepTables(
+        wpad = pow2_words(n)
+        k = int(np.abs(a_ord).max()).bit_length()
+        abs_w = np.abs(a_ord)
+        planes = [earlier]
+        signs = (1, -1) if (a_ord < 0).any() else (1,)
+        for sign in signs:
+            for b in range(k):
+                planes.append((a_ord * sign > 0) & (((abs_w >> b) & 1) == 1))
+        return WeightedSweepTables(
             nodes=jnp.asarray(order.astype(np.int32)),
-            m_proc=pack(mp),
-            m_unproc=pack(mu),
-            m_all=pack(ma),
-            thr1=jnp.asarray((base + 0.5 * u_cnt).astype(np.float32)),
-            thr2=jnp.asarray(base.astype(np.float32)),
-            m_proc_neg=pack(mpn) if signed else None,
-            m_unproc_neg=pack(mun) if signed else None,
-            m_all_neg=pack(man) if signed else None,
+            thr1=jnp.asarray((wdeg / 2.0 + 0.5 * u_cnt).astype(np.float32)),
+            thr2=jnp.asarray((wdeg / 2.0).astype(np.float32)),
+            masks=jnp.asarray(np.stack([_pack_rows(p, wpad) for p in planes])),
+            k_planes=k,
+            has_neg=len(signs) == 2,
         )
 
 
-def _pc_f32(words, m):
-    return jnp.sum(
-        jax.lax.population_count(words & m), axis=1, keepdims=True
-    ).astype(jnp.float32)
+def sweep_noise(seed, chain, step) -> jax.Array:
+    """int32 u16 noise of node step `step` (= sweep * N + k) on `chain`."""
+    return (hash_u32(seed, chain, step) & 0xFFFF).astype(jnp.int32)
 
 
-def _sweep_body(words, lane, node, m_a, m_b, two_b, u_term, thr):
-    """One node update. words [BLK, WPAD]; node scalar; m_a/m_b are
-    (pos, neg_or_None) mask pairs [1, WPAD] (signed popcount difference);
-    u_term [BLK, 1] f32 (noise * scale, already scaled); thr scalar f32."""
-    nbr = _pc_f32(words, m_a[0])
-    if m_a[1] is not None:
-        nbr = nbr - _pc_f32(words, m_a[1])
-    if two_b:
-        pc_b = _pc_f32(words, m_b[0])
-        if m_b[1] is not None:
-            pc_b = pc_b - _pc_f32(words, m_b[1])
-        nbr = nbr + two_b * pc_b
-    new_bit = ((nbr + u_term) < thr).astype(jnp.int32)  # [BLK, 1]
-    word_i = jax.lax.shift_right_logical(node, 5)
-    bitmask = jax.lax.shift_left(1, node & 31)
-    hot = (lane == word_i).astype(jnp.int32)  # [BLK, WPAD]
-    cleared = words & ~(hot * bitmask)
-    return cleared | (hot * (new_bit * bitmask))
-
-
-def _mcpg_sweep_kernel(
-    seed_ref,
-    nodes_ref,
-    thr1_ref,
-    thr2_ref,
-    *rest,
-    num_sweeps,
-    noise_scale,
-    use_prng,
-    signed,
-):
-    if signed:
-        (mp_ref, mpn_ref, mu_ref, mun_ref, ma_ref, man_ref,
-         noise_ref, bits_ref, out_ref) = rest
-    else:
-        mp_ref, mu_ref, ma_ref, noise_ref, bits_ref, out_ref = rest
-        mpn_ref = mun_ref = man_ref = None
-    num_nodes = nodes_ref.shape[0]
-    i_blk = pl.program_id(0)
-    if use_prng:
-        pltpu.prng_seed(seed_ref[0], i_blk)
-
-    out_ref[:] = bits_ref[:]
-    words0 = out_ref[:]
-    blk = words0.shape[0]
-    lane = jax.lax.broadcasted_iota(jnp.int32, words0.shape, 1)
+def _sweep_kernel(seed_ref, nodes_ref, thr1_ref, thr2_ref, masks_ref, words_ref,
+                  out_ref, *, num_nodes, num_sweeps, noise_scale, k_planes,
+                  has_neg):
+    blk, wpad = words_ref.shape
+    seed = seed_ref[0]
+    chain = pl.program_id(0) * blk + jnp.arange(blk, dtype=jnp.int32)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (blk, wpad), 1)
     scale = jnp.float32(noise_scale / 65536.0)
     half_ns = jnp.float32(noise_scale / 2.0)
+    plane_signs = [(1 + b, 1, b) for b in range(k_planes)]
+    if has_neg:
+        plane_signs += [(1 + k_planes + b, -1, b) for b in range(k_planes)]
 
-    def u_term(s, k):
-        if use_prng:
-            rnd = jax.lax.bitcast_convert_type(
-                pltpu.prng_random_bits((blk, 1)), jnp.int32
-            )
-            return (rnd & 0xFFFF).astype(jnp.float32) * scale
-        return noise_ref[s * num_nodes + k, :][:, None].astype(jnp.float32) * scale
+    def popcount(words, m):
+        return jnp.sum(jax.lax.population_count(words & m[None, :]), axis=1)
 
-    def first_sweep_step(k, words):
+    def update(words, step, k, first):
+        e = masks_ref[0, k, :] if first else None
+        nbr = jnp.zeros((blk,), jnp.int32)
+        for p, sign, b in plane_signs:
+            m = masks_ref[p, k, :]
+            t = popcount(words, m)
+            if first:  # proc + 2 * unproc = 2 * all - proc
+                t = 2 * t - popcount(words, m & e)
+            nbr = nbr + sign * (t << b)
+        u = sweep_noise(seed, chain, step).astype(jnp.float32) * scale
+        thr = (thr1_ref[k] if first else thr2_ref[k]) + half_ns
+        new_bit = ((nbr.astype(jnp.float32) + u) < thr).astype(jnp.int32)
         node = nodes_ref[k]
-        m_p = (mp_ref[pl.ds(k, 1), :], mpn_ref[pl.ds(k, 1), :] if signed else None)
-        m_u = (mu_ref[pl.ds(k, 1), :], mun_ref[pl.ds(k, 1), :] if signed else None)
-        return _sweep_body(
-            words, lane, node, m_p, m_u, 2.0, u_term(0, k), thr1_ref[k] + half_ns
-        )
+        bitmask = jnp.left_shift(jnp.int32(1), node & 31)
+        written = (words & ~bitmask) | (new_bit[:, None] * bitmask)
+        return jnp.where(lane == (node >> 5), written, words)
 
-    def later_step(sk, words):
-        s = sk // num_nodes
-        k = sk % num_nodes
-        node = nodes_ref[k]
-        m_a = (ma_ref[pl.ds(k, 1), :], man_ref[pl.ds(k, 1), :] if signed else None)
-        return _sweep_body(
-            words, lane, node, m_a, m_a, 0.0, u_term(s, k), thr2_ref[k] + half_ns
-        )
-
-    words = jax.lax.fori_loop(0, num_nodes, first_sweep_step, words0)
     words = jax.lax.fori_loop(
-        num_nodes, num_sweeps * num_nodes, later_step, words
+        0, num_nodes, lambda k, w: update(w, k, k, True), words_ref[...]
     )
-    out_ref[:] = words
-
-
-def _sweep_call(
-    tables: PackedSweepTables,
-    bits: jax.Array,
-    seed: jax.Array,
-    noise_u16: jax.Array,
-    num_sweeps: int,
-    noise_scale: float,
-    block_chains: int,
-    use_prng: bool,
-    interpret: bool,
-) -> jax.Array:
-    b, n = bits.shape
-    if n != tables.num_nodes:
-        raise ValueError(f"bits have {n} nodes, tables built for {tables.num_nodes}")
-    if b % block_chains != 0:
-        raise ValueError(f"chains {b} not a multiple of block {block_chains}")
-    wpad = tables.wpad
-    words = pack_bits(bits)
-    w = words.shape[1]
-    words = jnp.pad(words, ((0, 0), (0, wpad - w)))
-
-    signed = tables.signed
-    if signed:
-        masks = [
-            tables.m_proc, tables.m_proc_neg,
-            tables.m_unproc, tables.m_unproc_neg,
-            tables.m_all, tables.m_all_neg,
-        ]
-    else:
-        masks = [tables.m_proc, tables.m_unproc, tables.m_all]
-    mask_spec = pl.BlockSpec((n, wpad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    noise_rows = noise_u16.shape[0]  # 1 (prng dummy) or num_sweeps * n
-    noise_spec = pl.BlockSpec(
-        (noise_rows, block_chains), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    out = pl.pallas_call(
-        functools.partial(
-            _mcpg_sweep_kernel,
-            num_sweeps=num_sweeps,
-            noise_scale=noise_scale,
-            use_prng=use_prng,
-            signed=signed,
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, wpad), jnp.int32),
-        grid=(b // block_chains,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # seed
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # nodes
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # thr1
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # thr2
-            *([mask_spec] * len(masks)),
-            noise_spec,  # injected noise ([1, B] dummy when use_prng)
-            pl.BlockSpec(
-                (block_chains, wpad), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_chains, wpad), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(
-        jnp.atleast_1d(seed).astype(jnp.int32),
-        tables.nodes,
-        tables.thr1,
-        tables.thr2,
-        *masks,
-        noise_u16,
+    words = jax.lax.fori_loop(
+        num_nodes,
+        num_sweeps * num_nodes,
+        lambda sk, w: update(w, sk, jax.lax.rem(sk, num_nodes), False),
         words,
     )
-    return unpack_bits(out[:, :w], n)
+    out_ref[...] = words
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("num_sweeps", "noise_scale", "block_chains", "interpret"),
-)
-def mcpg_sweep_packed(
-    noise_u16: jax.Array,
-    bits: jax.Array,
-    tables: PackedSweepTables,
-    num_sweeps: int = 1,
-    noise_scale: float = 0.25,
-    block_chains: int = 512,
-    interpret: bool = False,
-) -> jax.Array:
-    """Injected-noise variant (CI-testable). noise_u16: int32 in [0, 65536)
-    of shape [num_sweeps * N, B]; bits: bool [B, N]. Bit-exact vs
-    `mcpg_sweep_reference`."""
-    return _sweep_call(
-        tables,
-        bits,
-        jnp.int32(0),
-        noise_u16,
-        num_sweeps,
-        noise_scale,
-        block_chains,
-        use_prng=False,
-        interpret=interpret,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("num_sweeps", "noise_scale", "block_chains"),
+    static_argnames=("num_sweeps", "noise_scale", "interpret"),
 )
 def mcpg_sweep_fused(
     seed: jax.Array,
     bits: jax.Array,
-    tables: PackedSweepTables,
+    tables: WeightedSweepTables,
     num_sweeps: int = 1,
     noise_scale: float = 0.25,
-    block_chains: int = 512,
-) -> jax.Array:
-    """Production variant: u16 noise from the on-core PRNG (TPU-only)."""
-    dummy = jnp.zeros((1, bits.shape[0]), jnp.int32)
-    return _sweep_call(
-        tables,
-        bits,
-        seed,
-        dummy,
-        num_sweeps,
-        noise_scale,
-        block_chains,
-        use_prng=True,
-        interpret=False,
-    )
-
-
-def pack_adjacency(graph: Graph) -> Tuple[jax.Array, Optional[jax.Array]]:
-    """{0, +-1}-weight adjacency as (pos, neg) packed int32 row planes
-    [N, WPAD] (natural node order) for the greedy 1-flip sweep; neg is None
-    for unit-weight graphs."""
-    n = graph.num_nodes
-    adj = np.asarray(graph.adjacency_dense())
-    if not np.all(np.isin(adj, (-1.0, 0.0, 1.0))):
-        raise ValueError(
-            "packed sweep requires a unit-weight or {0, +-1}-weight graph"
-        )
-    w = (n + 31) // 32
-    wpad = max(128, -(-w // 128) * 128)
-
-    def pack(rows: np.ndarray) -> jax.Array:
-        padded = np.zeros((n, wpad * 32), bool)
-        padded[:, :n] = rows
-        bits = padded.reshape(n, wpad, 32)
-        weights = (1 << np.arange(32, dtype=np.int64))[None, None, :]
-        words = (bits * weights).sum(axis=2)
-        return jnp.asarray((words & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
-
-    neg = pack(adj < 0) if np.any(adj < 0) else None
-    return pack(adj > 0), neg
-
-
-def _sweep_1flip_kernel(*refs, num_nodes, signed):
-    if signed:
-        adj_ref, adjn_ref, bits_ref, out_ref = refs
-    else:
-        adj_ref, bits_ref, out_ref = refs
-        adjn_ref = None
-    out_ref[:] = bits_ref[:]
-    words0 = out_ref[:]  # [BLK, WPAD] int32
-    lane = jax.lax.broadcasted_iota(jnp.int32, words0.shape, 1)
-
-    def body(i, words):
-        row = adj_ref[pl.ds(i, 1), :]  # [1, WPAD]
-        deg = jnp.sum(jax.lax.population_count(row))  # scalar
-        p = jnp.sum(
-            jax.lax.population_count(words & row), axis=1, keepdims=True
-        )  # [BLK, 1] neighbors with bit set
-        word_i = jax.lax.shift_right_logical(i, 5)
-        bitpos = i & 31
-        hot = (lane == word_i).astype(jnp.int32)
-        cur_word = jnp.sum(words * hot, axis=1, keepdims=True)
-        cur = jax.lax.shift_right_logical(cur_word, bitpos) & 1
-        # cut weight at i: neighbors on the other side (signed popcount
-        # difference for +-1 weights); flip gain = wdeg_i - 2 * cut_i
-        cut_i = jnp.where(cur == 1, deg - p, p)
-        wdeg = deg
-        if signed:
-            rown = adjn_ref[pl.ds(i, 1), :]
-            degn = jnp.sum(jax.lax.population_count(rown))
-            pn = jnp.sum(
-                jax.lax.population_count(words & rown), axis=1, keepdims=True
-            )
-            cut_i = cut_i - jnp.where(cur == 1, degn - pn, pn)
-            wdeg = deg - degn
-        accept = (wdeg - 2 * cut_i > 0).astype(jnp.int32)  # strict improvement
-        flip = jax.lax.shift_left(accept, bitpos)
-        return jax.lax.bitwise_xor(words, hot * flip)
-
-    out_ref[:] = jax.lax.fori_loop(0, num_nodes, body, words0)
-
-
-@functools.partial(jax.jit, static_argnames=("block_chains", "interpret"))
-def sweep_1flip_packed(
-    bits: jax.Array,
-    adj_packed: Tuple[jax.Array, Optional[jax.Array]],
-    block_chains: int = 512,
     interpret: bool = False,
 ) -> jax.Array:
-    """Greedy sequential 1-flip sweep (`env_L2A.py:110-115` semantics,
-    `MaxcutEnv.sweep_1flip`'s strict-improvement accepts, ascending node
-    order) on bit-packed state. Deterministic and integer-exact, so it is
-    bit-identical to the f32 incremental-gain formulation for unit-weight
-    and {0, +-1}-weight graphs (tested). bits: bool [B, N]; adj_packed =
-    `pack_adjacency(graph)` (pos, neg-or-None) planes.
-    """
-    adj_pos, adj_neg = adj_packed
-    signed = adj_neg is not None
+    """`num_sweeps` noisy degree-ordered sweeps over bool [B, N] chains
+    (any B: chains are padded to the block). Bit-exact vs
+    `mcpg_sweep_reference(sweep_noise grid, bits, tables, graph, ...)`."""
+    require_gpu(interpret, "mcpg_sweep_fused")
     b, n = bits.shape
-    if b % block_chains != 0:
-        raise ValueError(f"chains {b} not a multiple of block {block_chains}")
-    wpad = adj_pos.shape[1]
-    words = pack_bits(bits)
-    w = words.shape[1]
-    words = jnp.pad(words, ((0, 0), (0, wpad - w)))
-    adj_spec = pl.BlockSpec((n, wpad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    adj_args = (adj_pos, adj_neg) if signed else (adj_pos,)
+    if n != tables.num_nodes:
+        raise ValueError(f"bits have {n} nodes, tables built for {tables.num_nodes}")
+    wpad = tables.wpad
+    blk, num_warps = kernel_block(wpad)
+    rows = -(-b // blk) * blk
+    whole = lambda a: pl.BlockSpec(a.shape, lambda i: (0,) * a.ndim)  # noqa: E731
     out = pl.pallas_call(
-        functools.partial(_sweep_1flip_kernel, num_nodes=n, signed=signed),
-        out_shape=jax.ShapeDtypeStruct((b, wpad), jnp.int32),
-        grid=(b // block_chains,),
-        in_specs=[
-            *([adj_spec] * len(adj_args)),
-            pl.BlockSpec(
-                (block_chains, wpad), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_chains, wpad), lambda i: (i, 0), memory_space=pltpu.VMEM
+        functools.partial(
+            _sweep_kernel,
+            num_nodes=n,
+            num_sweeps=num_sweeps,
+            noise_scale=noise_scale,
+            k_planes=tables.k_planes,
+            has_neg=tables.has_neg,
         ),
+        out_shape=jax.ShapeDtypeStruct((rows, wpad), jnp.int32),
+        grid=(rows // blk,),
+        in_specs=[
+            pl.BlockSpec((1,), lambda i: (0,)),
+            whole(tables.nodes),
+            whole(tables.thr1),
+            whole(tables.thr2),
+            whole(tables.masks),
+            pl.BlockSpec((blk, wpad), lambda i: (i, 0)),
+        ],
+        out_specs=pl.BlockSpec((blk, wpad), lambda i: (i, 0)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=2),
         interpret=interpret,
-    )(*adj_args, words)
-    return unpack_bits(out[:, :w], n)
+        name="mcpg_sweep_fused",
+    )(
+        jnp.reshape(seed, (1,)).astype(jnp.int32),
+        tables.nodes,
+        tables.thr1,
+        tables.thr2,
+        tables.masks,
+        pack_padded(bits, wpad, rows),
+    )
+    return unpack_bits(out[:b, : (n + 31) // 32], n)
+
+
+def sweep_noise_grid(seed, num_chains: int, num_steps: int) -> jax.Array:
+    """int32 [num_steps, num_chains] u16 noise, as the kernel draws it."""
+    step = jnp.arange(num_steps, dtype=jnp.int32)[:, None]
+    chain = jnp.arange(num_chains, dtype=jnp.int32)[None, :]
+    return sweep_noise(jnp.asarray(seed, jnp.int32), chain, step)
 
 
 def mcpg_sweep_reference(
     noise_u16: jax.Array,
     bits: jax.Array,
-    tables: PackedSweepTables,
+    tables: WeightedSweepTables,
     graph: Graph,
     num_sweeps: int = 1,
     noise_scale: float = 0.25,
 ) -> jax.Array:
-    """XLA twin mirroring the kernel's exact arithmetic (signed-popcount
-    form — all neighbor sums are exact f32 integers for {0, +-1} weights),
-    consuming the same injected u16 noise. bits: bool [B, N] -> bool [B, N].
-    """
+    """XLA twin mirroring the kernel's exact arithmetic, consuming injected
+    u16 noise [num_sweeps * N, B] (`sweep_noise_grid` gives the kernel's).
+    bits: bool [B, N] -> bool [B, N]."""
     n = tables.num_nodes
     adj = jnp.asarray(np.asarray(graph.adjacency_dense()), jnp.float32)  # [N, N]
     order = tables.nodes
@@ -487,31 +272,21 @@ def mcpg_sweep_reference(
     m_unproc = jnp.where(earlier, 0.0, a_ord)
     scale = jnp.float32(noise_scale / 65536.0)
     half_ns = jnp.float32(noise_scale / 2.0)
-
-    x = bits.astype(jnp.float32)
+    hi = jax.lax.Precision.HIGHEST
 
     def step(x, inp):
-        node, mp, mu, ma, thr1, thr2, u, is_first = inp
-        pc_p = jnp.sum(x * mp[None, :], axis=1)
-        pc_u = jnp.sum(x * mu[None, :], axis=1)
-        pc_a = jnp.sum(x * ma[None, :], axis=1)
-        nbr = jnp.where(is_first, pc_p + 2.0 * pc_u, pc_a + 0.0 * pc_a)
-        thr = jnp.where(is_first, thr1, thr2) + half_ns
+        k, u, is_first = inp
+        node = order[k]
+        pc_p = jnp.matmul(x, m_proc[k], precision=hi)
+        pc_u = jnp.matmul(x, m_unproc[k], precision=hi)
+        pc_a = jnp.matmul(x, a_ord[k], precision=hi)
+        nbr = jnp.where(is_first, pc_p + 2.0 * pc_u, pc_a)
+        thr = jnp.where(is_first, tables.thr1[k], tables.thr2[k]) + half_ns
         u_term = u.astype(jnp.float32) * scale
         new_bit = ((nbr + u_term) < thr).astype(jnp.float32)
         return x.at[:, node].set(new_bit), None
 
-    s_idx = jnp.repeat(jnp.arange(num_sweeps), n)
     k_idx = jnp.tile(jnp.arange(n), num_sweeps)
-    seq = (
-        jnp.tile(order, num_sweeps),
-        m_proc[k_idx],
-        m_unproc[k_idx],
-        a_ord[k_idx],
-        jnp.tile(tables.thr1, num_sweeps),
-        jnp.tile(tables.thr2, num_sweeps),
-        noise_u16,
-        s_idx == 0,
-    )
-    x, _ = jax.lax.scan(step, x, seq)
+    is_first = jnp.repeat(jnp.arange(num_sweeps), n) == 0
+    x, _ = jax.lax.scan(step, bits.astype(jnp.float32), (k_idx, noise_u16, is_first))
     return x > 0

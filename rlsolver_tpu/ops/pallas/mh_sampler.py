@@ -1,40 +1,28 @@
-"""Fused Metropolis-Hastings bit-flip sampler as a Pallas TPU kernel.
+"""Fused Metropolis-Hastings bit-flip sampler: a Pallas kernel for Hopper.
 
 The MCPG hot loop (`metro_sampling`, reference `MCPG.py:88-118` /
 `MCPG/sampling.py:68-90`) runs hundreds of sequential single-flip proposal
 rounds per chain. The XLA `lax.scan` formulation
-(`rlsolver_tpu.ops.sampling.metropolis_bitflip_scan`) re-materializes the
-[B, N] chain state every round; this kernel keeps a block of chains
-resident in VMEM for ALL rounds — HBM traffic drops from
-O(rounds * B * N) to O(B * N + rounds * B), turning a bandwidth-bound scan
-into a VPU-bound loop.
+(`rlsolver_tpu.ops.sampling.metropolis_bitflip_scan`) rewrites the [B, N]
+chain state in device memory every round. This kernel (Pallas through
+Triton) gives each program a block of chains, holds their bit-packed words
+(32 nodes per int32) in registers for ALL rounds, and writes them back once.
 
-Randomness is injected: per-round node choices and uniforms are generated
-once with `jax.random` on the host side of the jit and streamed in. That
-keeps the kernel deterministic given (key), bit-exactly reproducible by the
-XLA twin `mh_reference` (tested), and runnable in interpreter mode on CPU
-(pltpu.prng_* has no CPU lowering).
+Per round, each chain draws one uint32 from the shared counter hash
+(`ops/counter_rng.hash_u32(seed, chain, round)`): the high 16 bits pick the
+node by fixed-point scaling `(hi * N) >> 16`, the low 16 bits are a u16
+uniform. The chain flips that node iff `u16 < thr[cur_bit, node]`, with the
+u16-scaled accept thresholds `p/(1-p)` (bit 0) and `(1-p)/p` (bit 1) loaded
+directly from a table in device memory — `metro_sampling`'s accept rule
+min(1, (1-q)/q). Site choice is state-independent, so the stationary
+distribution is the Bernoulli(probs) product measure (tested).
 
-Per round, each chain flips its chosen node with probability
-min(1, (1-q)/q), q = probs[node] if the bit is set else 1 - probs[node] —
-exactly `metro_sampling`'s accept rule. The stationary distribution of the
-per-site chain is P(bit = 1) = probs (detailed balance, tested).
+Wide instances (N >= 2^15) pick the WORD uniformly, `(hi * W) >> 16`, and
+the bit position from the low 5 bits, with u16 from a second draw.
+Proposals that land on the last word's padding bits never accept.
 
-Four implementations, fastest last (G22-class shapes: 8192 chains x 2000
-nodes x 1024 rounds, TPU v5e-1, 2026-08):
-
-  * `metropolis_bitflip_scan` (XLA scatter scan)     ~20M proposals/s
-  * `mh_sample_pallas` (f32 one-hot, VMEM-resident)  ~43-98M
-  * `mh_sample_stream` (bit-packed state, one int32 of injected randomness
-    per proposal)                                    ~100M
-  * `mh_sample_fused` (bit-packed + on-core PRNG + MXU threshold lookup —
-    zero per-proposal HBM traffic)                   ~355-370M
-
-Host-side threefry generation of the proposal stream (~170 ms per 8.4M
-proposals) is what separates the injected-randomness variants from
-`mh_sample_fused`. The injected variants stay as the CI-testable twins
-(`mh_reference`/`mh_reference_stream` are bit-exact XLA twins);
-`mh_sample_fused` is TPU-only and validated distributionally on hardware.
+`mh_sample_reference` is the XLA twin: the same draws and thresholds over
+the unpacked [B, N] state, bit-exact against the kernel for any input.
 """
 
 from __future__ import annotations
@@ -44,107 +32,41 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from rlsolver_tpu.ops.counter_rng import hash_u32
+
+WIDE_NODES = 1 << 15  # from here on the node is drawn as (word, bitpos)
+MAX_NODES = 1 << 20  # keeps the wide draw's hi16 * num_words inside uint32
 
 
-def make_round_randoms(
-    key: jax.Array, num_rounds: int, num_chains: int, num_nodes: int
-) -> Tuple[jax.Array, jax.Array]:
-    """(nodes [R, B] int32, uniforms [R, B] f32) for R proposal rounds."""
-    k1, k2 = jax.random.split(key)
-    nodes = jax.random.randint(k1, (num_rounds, num_chains), 0, num_nodes, jnp.int32)
-    u = jax.random.uniform(k2, (num_rounds, num_chains), jnp.float32)
-    return nodes, u
+def require_gpu(interpret: bool, what: str) -> None:
+    """The fused kernels run compiled only on a GPU. Interpret mode (the
+    CPU tests) is reached only by asking for it."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            f"{what} is a GPU kernel; the default backend is "
+            f"{jax.default_backend()!r}. Use the XLA path (sampler='budgeted', "
+            "sweep_mode='sequential') or pass interpret=True."
+        )
 
 
-def _mh_body(bits, probs, col, node, u):
-    """One proposal round. bits [B, N] f32; node [B] i32; u [B] f32."""
-    onehot = (col == node[:, None]).astype(jnp.float32)  # [B, N]
-    cur = jnp.sum(bits * onehot, axis=1)  # bit at chosen node, [B]
-    p = jnp.sum(probs * onehot, axis=1)  # probs[node]
-    q = cur * p + (1.0 - cur) * (1.0 - p)
-    accept = (u * q < (1.0 - q)).astype(jnp.float32)  # u < (1-q)/q, q > 0
-    return bits + onehot * accept[:, None] * (1.0 - 2.0 * bits)
+def pow2_words(n: int) -> int:
+    """int32 words per packed row, padded to a power of two (Triton blocks)."""
+    w = (n + 31) // 32
+    return 1 << max(0, (w - 1).bit_length())
 
 
-def _mh_kernel(probs_ref, nodes_ref, u_ref, bits_ref, out_ref, *, rounds_chunk):
-    # grid = (chain_blocks, round_chunks); the out block for a chain block
-    # is revisited across the (inner) round-chunk axis, so chain state stays
-    # resident in VMEM for the whole sampling run
-    r_step = pl.program_id(1)
-
-    @pl.when(r_step == 0)
-    def _():
-        out_ref[:] = bits_ref[:]
-
-    bits = out_ref[:]  # [BLK, N] f32 in {0, 1}
-    probs = probs_ref[:]  # [1, N] -> broadcasts
-    col = jax.lax.broadcasted_iota(jnp.int32, bits.shape, 1)
-
-    def body(r, bits):
-        return _mh_body(bits, probs, col, nodes_ref[r, :], u_ref[r, :])
-
-    out_ref[:] = jax.lax.fori_loop(0, rounds_chunk, body, bits)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("num_rounds", "block_chains", "rounds_chunk", "interpret"),
-)
-def mh_sample_pallas(
-    key: jax.Array,
-    probs: jax.Array,
-    bits: jax.Array,
-    num_rounds: int,
-    block_chains: int = 128,
-    rounds_chunk: int = 128,
-    interpret: bool = False,
-) -> jax.Array:
-    """Run `num_rounds` MH proposal rounds on every chain (fused kernel).
-
-    probs: f32 [N]; bits: bool/f32 [B, N] with B a multiple of
-    `block_chains` and num_rounds a multiple of `rounds_chunk` (the per-grid-
-    step random block kept in VMEM). Returns bool [B, N]. `interpret=True`
-    runs the kernel in interpreter mode (CPU CI).
-    """
-    b, n = bits.shape
-    if b % block_chains != 0:
-        raise ValueError(f"chains {b} not a multiple of block {block_chains}")
-    rounds_chunk = min(rounds_chunk, num_rounds)
-    if num_rounds % rounds_chunk != 0:
-        raise ValueError(f"rounds {num_rounds} not a multiple of {rounds_chunk}")
-    nodes, u = make_round_randoms(key, num_rounds, b, n)
-    bits_f = bits.astype(jnp.float32)
-    probs2 = probs.astype(jnp.float32)[None, :]
-
-    out = pl.pallas_call(
-        functools.partial(_mh_kernel, rounds_chunk=rounds_chunk),
-        out_shape=jax.ShapeDtypeStruct((b, n), jnp.float32),
-        grid=(b // block_chains, num_rounds // rounds_chunk),
-        in_specs=[
-            pl.BlockSpec((1, n), lambda i, r: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (rounds_chunk, block_chains),
-                lambda i, r: (r, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (rounds_chunk, block_chains),
-                lambda i, r: (r, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (block_chains, n), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_chains, n), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(probs2, nodes, u, bits_f)
-    return out > 0.5
+def kernel_block(wpad: int) -> Tuple[int, int]:
+    """(chains per program, warps) for packed rows of `wpad` words: about
+    512 state words per warp, at most 8 chains, so that G22-class batches
+    (8192 chains of 64 words) make ~8 programs for each of 132 SMs. On an
+    H100 at G22 widths, 8 chains and one warp were the fastest of the
+    shapes tried (PERF.md)."""
+    blk = max(1, min(8, 512 // wpad))
+    num_warps = max(1, min(8, blk * wpad // 512))
+    return blk, num_warps
 
 
 # pack/unpack materialize an int32 [B', W, 32] temporary — 32x the packed
@@ -155,8 +77,7 @@ _CODEC_CHUNK = 1 << 16
 
 def _pad_rows(x: jax.Array, chunk: int) -> jax.Array:
     """Pad the leading axis up to a multiple of `chunk` (with zeros)."""
-    b = x.shape[0]
-    pad = (-b) % chunk
+    pad = (-x.shape[0]) % chunk
     if pad:
         x = jnp.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1))
     return x
@@ -198,388 +119,126 @@ def unpack_bits(words: jax.Array, n: int) -> jax.Array:
     return out.reshape(-1, n)[:b]
 
 
-def _mh_packed_kernel(nodes_ref, acc_ref, bits_ref, out_ref, *, rounds_chunk):
-    # Same grid/residency scheme as `_mh_kernel`, but chain state is 32x
-    # denser (bit-packed int32 words), so the per-proposal one-hot pass is
-    # over N/32 lanes instead of N.
-    r_step = pl.program_id(1)
-
-    @pl.when(r_step == 0)
-    def _():
-        out_ref[:] = bits_ref[:]
-
-    words0 = out_ref[:]  # [BLK, WPAD] int32
-    lane = jax.lax.broadcasted_iota(jnp.int32, words0.shape, 1)
-
-    def body(r, words):
-        node = nodes_ref[r, :]  # [BLK] int32
-        acc2 = acc_ref[r, :]  # [BLK] int32, bit c = accept given cur bit == c
-        word_i = jax.lax.shift_right_logical(node, 5)[:, None]  # [BLK, 1]
-        bitpos = (node & 31)[:, None]
-        hot = (lane == word_i).astype(jnp.int32)  # [BLK, WPAD]
-        cur_word = jnp.sum(words * hot, axis=1, keepdims=True)  # [BLK, 1]
-        cur = jax.lax.shift_right_logical(cur_word, bitpos) & 1
-        acc = jax.lax.shift_right_logical(acc2[:, None], cur) & 1
-        flip = jax.lax.shift_left(acc, bitpos)  # [BLK, 1]
-        return jax.lax.bitwise_xor(words, hot * flip)
-
-    out_ref[:] = jax.lax.fori_loop(0, rounds_chunk, body, words0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("num_rounds", "block_chains", "rounds_chunk", "interpret"),
-)
-def mh_sample_packed(
-    key: jax.Array,
-    probs: jax.Array,
-    bits: jax.Array,
-    num_rounds: int,
-    block_chains: int = 128,
-    rounds_chunk: int = 128,
-    interpret: bool = False,
-) -> jax.Array:
-    """Bit-packed VMEM-resident MH sampler — bit-exact vs `mh_reference`.
-
-    Chains live as int32 bit-words (32 nodes per lane), so one proposal
-    round costs O(B * N/32) int ops instead of O(B * N) f32 ops, and the
-    whole [B, N/32] state block stays resident in VMEM across all rounds.
-    The accept tests are hoisted to XLA: for each (round, chain) both
-    conditional outcomes `accept | cur_bit = c` are precomputed from
-    (probs[node], u) and streamed in as a 2-bit table, leaving the kernel a
-    pure bit-lookup/xor loop. Accept rule and randomness stream are
-    identical to `mh_reference` / `metro_sampling` (`MCPG.py:88-118`).
-    """
-    b, n = bits.shape
-    if b % block_chains != 0:
-        raise ValueError(f"chains {b} not a multiple of block {block_chains}")
-    rounds_chunk = min(rounds_chunk, num_rounds)
-    if num_rounds % rounds_chunk != 0:
-        raise ValueError(f"rounds {num_rounds} not a multiple of {rounds_chunk}")
-    nodes, u = make_round_randoms(key, num_rounds, b, n)
-    p = probs.astype(jnp.float32)[nodes]  # [R, B]
-    a1 = (u * p < (1.0 - p)).astype(jnp.int32)  # accept when cur bit == 1 (q = p)
-    a0 = (u * (1.0 - p) < p).astype(jnp.int32)  # accept when cur bit == 0 (q = 1-p)
-    acc2 = a0 | jax.lax.shift_left(a1, 1)
+def pack_padded(bits: jax.Array, wpad: int, rows: int) -> jax.Array:
+    """bool [B, N] -> int32 [rows, wpad] (zero words and zero chains)."""
     words = pack_bits(bits)
-    w = words.shape[1]
-    wpad = max(128, ((w + 127) // 128) * 128)
-    words = jnp.pad(words, ((0, 0), (0, wpad - w)))
-
-    out = pl.pallas_call(
-        functools.partial(_mh_packed_kernel, rounds_chunk=rounds_chunk),
-        out_shape=jax.ShapeDtypeStruct((b, wpad), jnp.int32),
-        grid=(b // block_chains, num_rounds // rounds_chunk),
-        in_specs=[
-            pl.BlockSpec(
-                (rounds_chunk, block_chains),
-                lambda i, r: (r, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (rounds_chunk, block_chains),
-                lambda i, r: (r, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (block_chains, wpad), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_chains, wpad), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(nodes, acc2, words)
-    return unpack_bits(out[:, :w], n)
-
-
-def make_proposal_stream(
-    key: jax.Array, num_rounds: int, num_chains: int, probs: jax.Array
-) -> jax.Array:
-    """One packed int32 per proposal: `word << 7 | bitpos << 2 | acc2`.
-
-    Each proposal consumes a single 32-bit draw: the high 16 bits pick the
-    site via fixed-point scaling `(hi * N) >> 16` and the low 16 bits are a
-    u16 uniform for the accept test. Site selection is therefore *almost*
-    uniform (each node drawn floor/ceil(65536/N) times out of 65536); since
-    single-site Metropolis site choice is state-independent, any selection
-    distribution preserves the Bernoulli(probs) stationary distribution —
-    only mixing speed changes, by O(N/65536). Both conditional accept
-    outcomes (`acc2` bit c = accept given current bit == c) are precomputed
-    so the kernel never touches `probs`.
-    """
-    n = probs.shape[0]
-    bits = jax.random.bits(key, (num_rounds, num_chains), jnp.uint32)
-    hi = jax.lax.shift_right_logical(bits, jnp.uint32(16))
-    node = ((hi * jnp.uint32(n)) >> jnp.uint32(16)).astype(jnp.int32)
-    u16 = (bits & jnp.uint32(0xFFFF)).astype(jnp.float32)  # in [0, 65536)
-    p = probs.astype(jnp.float32)[node]
-    a0 = (u16 * (1.0 - p) < p * 65536.0).astype(jnp.int32)  # accept | cur == 0
-    a1 = (u16 * p < (1.0 - p) * 65536.0).astype(jnp.int32)  # accept | cur == 1
-    acc2 = a0 | jax.lax.shift_left(a1, 1)
-    word = jax.lax.shift_right_logical(node, 5)
-    bitpos = node & 31
-    return (
-        jax.lax.shift_left(word, 7) | jax.lax.shift_left(bitpos, 2) | acc2
+    return jnp.pad(
+        words, ((0, rows - words.shape[0]), (0, wpad - words.shape[1]))
     )
 
 
-def _mh_stream_kernel(stream_ref, bits_ref, out_ref, *, rounds_chunk):
-    r_step = pl.program_id(1)
+def mh_proposal(seed, chain, step, num_nodes: int, num_words: int):
+    """(node int32, u16 f32) of proposal `step` on `chain` — shared by the
+    kernel and its twin. Nodes may reach the last word's padding bits only
+    on the wide path."""
+    if num_nodes < WIDE_NODES:
+        h = hash_u32(seed, chain, step)
+        node = ((h >> 16) * num_nodes) >> 16
+        u16 = h & 0xFFFF
+    else:
+        h = hash_u32(seed, chain, 2 * step)
+        node = (((h >> 16) * num_words) >> 16) * 32 + (h & 31)
+        u16 = hash_u32(seed, chain, 2 * step + 1) & 0xFFFF
+    return node.astype(jnp.int32), u16.astype(jnp.int32).astype(jnp.float32)
 
-    @pl.when(r_step == 0)
-    def _():
-        out_ref[:] = bits_ref[:]
 
-    words0 = out_ref[:]  # [BLK, WPAD] int32
-    lane = jax.lax.broadcasted_iota(jnp.int32, words0.shape, 1)
+def mh_thresholds(probs: jax.Array, width: int) -> jax.Array:
+    """f32 [2 * width]: u16-scaled accept thresholds given the current bit
+    is 0 (first half) or 1 (second half); zero past the real nodes."""
+    p = probs.astype(jnp.float32)
+    t0 = jnp.clip(p / jnp.maximum(1.0 - p, 1e-9) * 65536.0, 0.0, 65536.0)
+    t1 = jnp.clip((1.0 - p) / jnp.maximum(p, 1e-9) * 65536.0, 0.0, 65536.0)
+    pad = (0, width - p.shape[0])
+    return jnp.concatenate([jnp.pad(t0, pad), jnp.pad(t1, pad)])
+
+
+def _mh_kernel(seed_ref, thr_ref, words_ref, out_ref, *, num_rounds, num_nodes,
+               num_words, width):
+    blk, wpad = words_ref.shape
+    seed = seed_ref[0]
+    chain = pl.program_id(0) * blk + jnp.arange(blk, dtype=jnp.int32)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (blk, wpad), 1)
 
     def body(r, words):
-        s = stream_ref[r, :]  # [BLK] int32 packed proposal
-        word_i = jax.lax.shift_right_logical(s, 7)[:, None]
-        bitpos = (jax.lax.shift_right_logical(s, 2) & 31)[:, None]
-        acc2 = (s & 3)[:, None]
-        hot = (lane == word_i).astype(jnp.int32)
-        cur_word = jnp.sum(words * hot, axis=1, keepdims=True)
-        cur = jax.lax.shift_right_logical(cur_word, bitpos) & 1
-        acc = jax.lax.shift_right_logical(acc2, cur) & 1
-        flip = jax.lax.shift_left(acc, bitpos)
-        return jax.lax.bitwise_xor(words, hot * flip)
+        node, u16 = mh_proposal(seed, chain, r, num_nodes, num_words)
+        bitpos = node & 31
+        hot = lane == (node >> 5)[:, None]
+        cur = (jnp.sum(jnp.where(hot, words, 0), axis=1) >> bitpos) & 1
+        th = thr_ref[cur * width + node]
+        flip = (u16 < th).astype(jnp.int32) << bitpos
+        return words ^ jnp.where(hot, flip[:, None], 0)
 
-    out_ref[:] = jax.lax.fori_loop(0, rounds_chunk, body, words0)
+    out_ref[...] = jax.lax.fori_loop(0, num_rounds, body, words_ref[...])
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("num_rounds", "block_chains", "rounds_chunk", "interpret"),
-)
-def mh_sample_stream(
-    key: jax.Array,
-    probs: jax.Array,
-    bits: jax.Array,
-    num_rounds: int,
-    block_chains: int = 512,
-    rounds_chunk: int = 128,
-    interpret: bool = False,
-) -> jax.Array:
-    """Production MH sampler: bit-packed chains + single packed proposal
-    stream (one int32 of randomness per proposal instead of 64 bits), the
-    fastest injected-randomness variant. Bit-exact vs `mh_reference_stream`.
-    """
-    b, n = bits.shape
-    if b % block_chains != 0:
-        raise ValueError(f"chains {b} not a multiple of block {block_chains}")
-    rounds_chunk = min(rounds_chunk, num_rounds)
-    if num_rounds % rounds_chunk != 0:
-        raise ValueError(f"rounds {num_rounds} not a multiple of {rounds_chunk}")
-    stream = make_proposal_stream(key, num_rounds, b, probs)
-    words = pack_bits(bits)
-    w = words.shape[1]
-    wpad = max(128, ((w + 127) // 128) * 128)
-    words = jnp.pad(words, ((0, 0), (0, wpad - w)))
-
-    out = pl.pallas_call(
-        functools.partial(_mh_stream_kernel, rounds_chunk=rounds_chunk),
-        out_shape=jax.ShapeDtypeStruct((b, wpad), jnp.int32),
-        grid=(b // block_chains, num_rounds // rounds_chunk),
-        in_specs=[
-            pl.BlockSpec(
-                (rounds_chunk, block_chains),
-                lambda i, r: (r, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (block_chains, wpad), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (block_chains, wpad), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(stream, words)
-    return unpack_bits(out[:, :w], n)
-
-
-def _mh_fused_kernel(
-    seed_ref, thr_ref, bits_ref, out_ref, *, rounds_chunk, num_nodes, num_words
-):
-    """In-kernel PRNG variant: no randomness streamed from HBM at all.
-
-    thr_ref [WPAD, 64] f32: per-(word, bitpos) u16-scaled accept thresholds,
-    columns 0..31 = threshold given cur bit == 0, 32..63 = given cur == 1.
-    Per round: draw one uint32 per chain with the on-core PRNG, derive
-    (node, u16) exactly like `make_proposal_stream`, fetch the two
-    conditional thresholds with one [BLK, WPAD] @ [WPAD, 64] MXU dot, and
-    apply the packed-bit flip.
-
-    Two node derivations (both int32-safe — Mosaic has no int64/uint mul):
-      num_nodes < 2^15: node = (hi16 * n) >> 16 from ONE draw per round,
-        then (word, bitpos) = (node >> 5, node & 31).
-      num_nodes >= 2^15 ("wide"): hi16 * n overflows int32, so pick the
-        WORD uniformly — word = (hi16 * num_words) >> 16 (needs num_words
-        < 2^15, i.e. n < 2^20) — and bitpos = rnd & 31 from independent
-        low bits; u16 comes from a SECOND draw. Proposals landing on the
-        last word's padding bits are dead (their thresholds are 0/never
-        -accept and the bits start 0), costing < pad/32w of proposal
-        efficiency; real nodes stay exactly uniform.
-    """
-    i_blk = pl.program_id(0)
-    r_step = pl.program_id(1)
-    # prng_seed takes at most 2 values; fold (block, round-chunk) into one
-    pltpu.prng_seed(seed_ref[0], i_blk * 65536 + r_step)
-
-    @pl.when(r_step == 0)
-    def _():
-        out_ref[:] = bits_ref[:]
-
-    words0 = out_ref[:]  # [BLK, WPAD] int32
-    blk = words0.shape[0]
-    lane = jax.lax.broadcasted_iota(jnp.int32, words0.shape, 1)
-    pos32 = jax.lax.broadcasted_iota(jnp.int32, (blk, 32), 1)
-    thr = thr_ref[:]  # [WPAD, 64] f32
-    wide = num_nodes >= 1 << 15
-
-    def body(_, words):
-        rnd = jax.lax.bitcast_convert_type(
-            pltpu.prng_random_bits((blk, 1)), jnp.int32
-        )  # [BLK, 1]
-        hi = jax.lax.shift_right_logical(rnd, 16)
-        if wide:
-            word_i = jax.lax.shift_right_logical(hi * num_words, 16)
-            bitpos = rnd & 31
-            rnd2 = jax.lax.bitcast_convert_type(
-                pltpu.prng_random_bits((blk, 1)), jnp.int32
-            )
-            u16 = (rnd2 & 0xFFFF).astype(jnp.float32)  # [BLK, 1]
-        else:
-            node = jax.lax.shift_right_logical(hi * num_nodes, 16)
-            u16 = (rnd & 0xFFFF).astype(jnp.float32)  # [BLK, 1]
-            word_i = jax.lax.shift_right_logical(node, 5)  # [BLK, 1]
-            bitpos = node & 31
-        hot = (lane == word_i).astype(jnp.float32)  # [BLK, WPAD]
-        th2 = jax.lax.dot_general(
-            hot, thr, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [BLK, 64]
-        sel = (pos32 == bitpos).astype(jnp.float32)  # [BLK, 32]
-        th0 = jnp.sum(th2[:, :32] * sel, axis=1, keepdims=True)
-        th1 = jnp.sum(th2[:, 32:] * sel, axis=1, keepdims=True)
-        hot_i = hot.astype(jnp.int32)
-        cur_word = jnp.sum(words * hot_i, axis=1, keepdims=True)
-        cur = jax.lax.shift_right_logical(cur_word, bitpos) & 1
-        th = jnp.where(cur == 1, th1, th0)
-        acc = (u16 < th).astype(jnp.int32)
-        flip = jax.lax.shift_left(acc, bitpos)
-        return jax.lax.bitwise_xor(words, hot_i * flip)
-
-    out_ref[:] = jax.lax.fori_loop(0, rounds_chunk, body, words0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("num_rounds", "block_chains", "rounds_chunk"),
+    jax.jit, static_argnames=("num_rounds", "interpret")
 )
 def mh_sample_fused(
     seed: jax.Array,
     probs: jax.Array,
     bits: jax.Array,
     num_rounds: int,
-    block_chains: int = 512,
-    rounds_chunk: int = 128,
+    interpret: bool = False,
 ) -> jax.Array:
-    """Fastest MH sampler: on-core PRNG, zero per-proposal HBM traffic.
+    """`num_rounds` MH proposal rounds on every chain, in one kernel.
 
-    TPU-only (`pltpu.prng_seed` has no CPU/interpret lowering) — CI covers
-    the bit-exact injected-randomness twins; this path is validated
-    distributionally on hardware. Same accept rule and (node, u16)
-    derivation as `make_proposal_stream`, but with the kernel's own
-    per-(block, round-chunk) seeded PRNG stream, so results differ from
-    `mh_reference_stream` draw-for-draw while targeting the identical
-    Bernoulli(probs) stationary distribution.
-    """
+    seed: int32 scalar; probs: f32 [N]; bits: bool [B, N] (any B: chains are
+    padded to the block). Returns bool [B, N], bit-exact vs
+    `mh_sample_reference(seed, probs, bits, num_rounds)`."""
+    require_gpu(interpret, "mh_sample_fused")
     b, n = bits.shape
-    if b % block_chains != 0:
-        raise ValueError(f"chains {b} not a multiple of block {block_chains}")
-    if n >= 1 << 20:
+    if n >= MAX_NODES:
         raise ValueError(f"fused sampler requires num_nodes < 2^20, got {n}")
-    # chunking only affects PRNG re-seed points; snap to a divisor so any
-    # round count works
-    rounds_chunk = min(rounds_chunk, num_rounds)
-    while num_rounds % rounds_chunk != 0:
-        rounds_chunk -= 1
-    words = pack_bits(bits)
-    w = words.shape[1]
-    wpad = max(128, ((w + 127) // 128) * 128)
-    words = jnp.pad(words, ((0, 0), (0, wpad - w)))
-
-    # u16-scaled conditional accept thresholds, laid out by (word, bitpos).
-    p = probs.astype(jnp.float32)
-    t0 = jnp.clip(p / jnp.maximum(1.0 - p, 1e-9) * 65536.0, 0.0, 65536.0)
-    t1 = jnp.clip((1.0 - p) / jnp.maximum(p, 1e-9) * 65536.0, 0.0, 65536.0)
-    pad = wpad * 32 - n
-    t0 = jnp.pad(t0, (0, pad)).reshape(wpad, 32)
-    t1 = jnp.pad(t1, (0, pad)).reshape(wpad, 32)
-    thr = jnp.concatenate([t0, t1], axis=1)  # [WPAD, 64]
-
+    w = (n + 31) // 32
+    wpad = pow2_words(n)
+    blk, num_warps = kernel_block(wpad)
+    rows = -(-b // blk) * blk
+    width = wpad * 32
     out = pl.pallas_call(
         functools.partial(
-            _mh_fused_kernel, rounds_chunk=rounds_chunk, num_nodes=n, num_words=w
+            _mh_kernel, num_rounds=num_rounds, num_nodes=n, num_words=w,
+            width=width,
         ),
-        out_shape=jax.ShapeDtypeStruct((b, wpad), jnp.int32),
-        grid=(b // block_chains, num_rounds // rounds_chunk),
+        out_shape=jax.ShapeDtypeStruct((rows, wpad), jnp.int32),
+        grid=(rows // blk,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((wpad, 64), lambda i, r: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (block_chains, wpad), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-            ),
+            pl.BlockSpec((1,), lambda i: (0,)),
+            pl.BlockSpec((2 * width,), lambda i: (0,)),
+            pl.BlockSpec((blk, wpad), lambda i: (i, 0)),
         ],
-        out_specs=pl.BlockSpec(
-            (block_chains, wpad), lambda i, r: (i, 0), memory_space=pltpu.VMEM
-        ),
-    )(jnp.atleast_1d(seed).astype(jnp.int32), thr, words)
-    return unpack_bits(out[:, :w], n)
+        out_specs=pl.BlockSpec((blk, wpad), lambda i: (i, 0)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
+        interpret=interpret,
+        name="mh_sample_fused",
+    )(
+        jnp.reshape(seed, (1,)).astype(jnp.int32),
+        mh_thresholds(probs, width),
+        pack_padded(bits, wpad, rows),
+    )
+    return unpack_bits(out[:b, :w], n)
 
 
 @functools.partial(jax.jit, static_argnames=("num_rounds",))
-def mh_reference_stream(
-    key: jax.Array, probs: jax.Array, bits: jax.Array, num_rounds: int
+def mh_sample_reference(
+    seed: jax.Array, probs: jax.Array, bits: jax.Array, num_rounds: int
 ) -> jax.Array:
-    """XLA twin of `mh_sample_stream` consuming the same packed proposal
-    stream — bit-exact for any (key, probs, bits)."""
+    """XLA twin of `mh_sample_fused`: the same draws and thresholds on the
+    unpacked state, one `lax.scan` step per round."""
     b, n = bits.shape
-    stream = make_proposal_stream(key, num_rounds, b, probs)
-    word = jax.lax.shift_right_logical(stream, 7)
-    bitpos = jax.lax.shift_right_logical(stream, 2) & 31
-    nodes = jax.lax.shift_left(word, 5) | bitpos
-    acc2 = stream & 3
-    col = jax.lax.broadcasted_iota(jnp.int32, (b, n), 1)
+    w = (n + 31) // 32
+    width = w * 32
+    thr = mh_thresholds(probs, width)
+    chain = jnp.arange(b, dtype=jnp.int32)
+    seed = jnp.asarray(seed, jnp.int32)
 
-    def body(bits_f, inp):
-        node, a2 = inp
-        onehot = (col == node[:, None]).astype(jnp.float32)
-        cur = jnp.sum(bits_f * onehot, axis=1).astype(jnp.int32)
-        acc = (jax.lax.shift_right_logical(a2, cur) & 1).astype(jnp.float32)
-        return bits_f + onehot * acc[:, None] * (1.0 - 2.0 * bits_f), None
+    def body(x, r):
+        node, u16 = mh_proposal(seed, chain, r, n, w)
+        cur = x[chain, node]
+        th = thr[cur.astype(jnp.int32) * width + node]
+        return x.at[chain, node].set(cur ^ (u16 < th)), None
 
-    out, _ = jax.lax.scan(body, bits.astype(jnp.float32), (nodes, acc2))
-    return out > 0.5
-
-
-@functools.partial(jax.jit, static_argnames=("num_rounds",))
-def mh_reference(
-    key: jax.Array, probs: jax.Array, bits: jax.Array, num_rounds: int
-) -> jax.Array:
-    """XLA scan twin consuming the SAME injected randomness — bit-exact
-    against `mh_sample_pallas` for any (key, probs, bits)."""
-    b, n = bits.shape
-    nodes, u = make_round_randoms(key, num_rounds, b, n)
-    col = jax.lax.broadcasted_iota(jnp.int32, (b, n), 1)
-    probs2 = probs.astype(jnp.float32)[None, :]
-
-    def body(bits, inp):
-        node, uu = inp
-        return _mh_body(bits, probs2, col, node, uu), None
-
-    out, _ = jax.lax.scan(body, bits.astype(jnp.float32), (nodes, u))
-    return out > 0.5
+    x = jnp.pad(bits.astype(bool), ((0, 0), (0, width - n)))
+    x, _ = jax.lax.scan(body, x, jnp.arange(num_rounds, dtype=jnp.int32))
+    return x[:, :n]

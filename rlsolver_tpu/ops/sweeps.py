@@ -10,11 +10,11 @@ processed ones carry {0, 1} — reproduced here exactly.
 This is the part of the reference that "resists naive vmap" (SURVEY.md
 section 3.2): the sweep is inherently sequential per env. Here it is a
 `lax.scan` over the node axis with padded-neighbor gathers, batched over all
-envs — O(B * max_deg) VPU work per node, all inside one jit.
+envs — O(B * max_deg) elementwise work per node, all inside one jit.
 
 A color-parallel variant (`colored_sweep`) updates whole independent color
 classes at once — a different (typically equally good) heuristic fixpoint
-that replaces N sequential steps with num_colors matmul steps on the MXU.
+that replaces N sequential steps with num_colors matmul steps.
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ def colored_sweep(
     num_sweeps: int = 1,
     noise_scale: float = 0.25,
 ) -> jax.Array:
-    """Color-parallel anti-majority sweep on {0,1} bits (MXU formulation).
+    """Color-parallel anti-majority sweep on {0,1} bits (matmul formulation).
 
     Per color class, neighbor sums for the whole class come from one
     [B,N]x[N,N] matmul; nodes within a class share no edge, so the joint

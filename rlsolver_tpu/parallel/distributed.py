@@ -2,10 +2,10 @@
 
 Reference counterpart (SURVEY.md section 2.9 / section 5): the reference's
 only multi-accelerator substrate is NCCL `torch.distributed` process groups
-(`S2V_PPO/train_ddp.py:16-61`) plus `mp.spawn` launchers. The TPU-native
+(`S2V_PPO/train_ddp.py:16-61`) plus `mp.spawn` launchers. The JAX
 equivalent is `jax.distributed.initialize` once per host and ONE SPMD
 program over a mesh with axes ("host", "device"): intra-host collectives
-ride ICI, the host axis rides DCN. Environments shard over both axes;
+ride the cards' NVLink, the host axis rides the network. Environments shard over both axes;
 params replicate; `psum` over the flattened ("host", "device") pair is the
 DDP all-reduce.
 
@@ -32,8 +32,8 @@ def initialize_multihost(
 ) -> bool:
     """`jax.distributed.initialize` wrapper; no-op on a single process.
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly for CPU/GPU clusters. Returns True if distributed mode
+    Pass the arguments explicitly (coordinator `host:port`, process count
+    and index) on CPU and GPU clusters. Returns True if distributed mode
     is active after the call.
     """
     if jax.process_count() > 1:
@@ -76,7 +76,7 @@ def replicated_2d(mesh: Mesh) -> NamedSharding:
 
 
 def psum_all(x: jax.Array) -> jax.Array:
-    """Sum over the full mesh: ICI within a host, DCN across hosts."""
+    """Sum over the full mesh: within a host and across hosts."""
     return jax.lax.psum(x, (HOST_AXIS, DEVICE_AXIS))
 
 

@@ -3,7 +3,7 @@
 The reference's only true multi-accelerator paths are NCCL DDP with per-rank
 env shards (`rlsolver/methods/S2V_PPO/train_ddp.py:16-61,216-217`) and a
 process-pipe actor-learner topology (`elegantrl/train/run.py:141-359`). The
-TPU-native replacement (SURVEY.md section 2.9) is one SPMD program:
+single-program replacement (SURVEY.md section 2.9) is one SPMD program:
 
   * a 1-D mesh over all chips with axis "env";
   * environment state sharded along the sim axis;

@@ -11,9 +11,9 @@ classical WMMSE iteration), `net_mimo.py` + `train_reinforce_mimo.py`
 (policy net refining W, trained by direct gradient ascent on the
 differentiable sum rate; podracer variant = vectorized multi-env batch).
 
-TPU-first: the TPU backend supports neither complex dtypes nor LAPACK-style
-linalg custom calls, so complex tensors are explicit (re, im) pairs
-(`CTensor`) whose products are real matmuls on MXU, and the Hermitian
+Accelerator-first: the device program uses neither complex dtypes nor
+LAPACK-style linalg custom calls: complex tensors are explicit (re, im)
+pairs (`CTensor`) whose products are real matmuls, and the Hermitian
 positive-definite inverses in ZF/MMSE use a Newton-Schulz iteration —
 matmul-only, quadratically convergent for the regularized Gram matrices
 used here. The whole refinement episode is a `lax.scan`; training loss =
@@ -280,7 +280,7 @@ def train_beamforming(
     key = jax.random.PRNGKey(cfg.seed)
     k_init, key = jax.random.split(key)
     full = 2 * spec.num_users * spec.num_antennas
-    # static orthonormal curriculum basis (host-side QR; no TPU linalg)
+    # static orthonormal curriculum basis (host-side QR; no device linalg)
     basis = np.linalg.qr(np.random.RandomState(cfg.seed).rand(full, full))[0]
     basis = jnp.asarray(basis, jnp.float32)
     h0 = random_channels(k_init, spec, 1)

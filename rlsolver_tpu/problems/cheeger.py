@@ -7,7 +7,7 @@ Reference counterpart: `rlsolver/methods/MCPG/sampling.py:184-251`
 with a sequential degree-ordered flip sweep maintaining (cut, |S|)
 incrementally, rejecting flips that empty either side.
 
-TPU-first: the sweep is a `lax.scan` over nodes in degree order; the
+Accelerator-first: the sweep is a `lax.scan` over nodes in degree order; the
 per-node cut change uses the padded neighbor table — all chains batched.
 """
 

@@ -6,7 +6,7 @@ Reference counterpart: `rlsolver/methods/MCPG/dataloader.py:169-276`
 variable-order local search with scatter-max clause evaluation, noisy
 accepts).
 
-TPU-first redesign: clauses live in a padded [C, K] literal table (var index
+Accelerator-first redesign: clauses live in a padded [C, K] literal table (var index
 + sign), so clause satisfaction is one gather + max; the per-variable local
 search is a `lax.scan` over variables whose body touches only the padded
 set of clauses containing that variable — all chains in parallel.

@@ -10,7 +10,7 @@ Reference counterparts:
   * `methods_problem_specific/mimo_beamforming/.../baseline_zf_mmse.py` —
     zero-forcing and MMSE linear detectors (the classical baselines).
 
-TPU-first: batched instance generation, vectorized energies, incremental
+Accelerator-first: batched instance generation, vectorized energies, incremental
 field sweeps, and batched ZF/MMSE via one solve each.
 """
 

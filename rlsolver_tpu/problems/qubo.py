@@ -6,10 +6,10 @@ coordinate sweep `x_i <- sign((Qx)_i)`; `mcpg_sampling_qubo_bin` — binary
 variables with threshold `-(Q_ii)/2`) and `dataloader.py:278-293`
 (`qubo_dataloader` — dense Q matrix from text).
 
-TPU-first redesign: the sweep keeps the field `h = x @ Q` incrementally
+Accelerator-first redesign: the sweep keeps the field `h = x @ Q` incrementally
 (rank-1 row update per coordinate) instead of recomputing a full matvec per
 variable, and runs as one `lax.scan` over coordinates with all chains
-batched — O(B*N) per step, O(B*N^2) per sweep, all dense VPU/MXU work.
+batched — O(B*N) per step, O(B*N^2) per sweep, all dense vector and matmul work.
 """
 
 from __future__ import annotations

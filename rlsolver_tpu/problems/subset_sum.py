@@ -11,7 +11,7 @@ lamb [[1, -1, -1, -77]]) and `subset_sum_local_search.py`
 the MCPG pattern, wired here through
 `rlsolver_tpu.algos.mcpg_multi.subset_sum_problem`).
 
-TPU-first: the objective is one masked matvec; the local-search sweep keeps
+Accelerator-first: the objective is one masked matvec; the local-search sweep keeps
 the running sums incrementally and scans items — all chains batched.
 """
 

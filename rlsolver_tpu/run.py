@@ -68,15 +68,13 @@ def _bls(g, seed):
     return bits, cut
 
 
-def _local_search(g, seed, fast=False):
+def _local_search(g, seed):
     from rlsolver_tpu.algos.local_search_solver import (
         LocalSearchConfig,
         solve_maxcut_local_search,
     )
 
-    out = solve_maxcut_local_search(
-        g, LocalSearchConfig(seed=seed, packed_sweep=fast)
-    )
+    out = solve_maxcut_local_search(g, LocalSearchConfig(seed=seed))
     return out[0], out[1]
 
 
@@ -90,10 +88,10 @@ def _mcpg(g, seed, fast=False):
     return out[0], out[1]
 
 
-def _l2a(g, seed, fast=False):
+def _l2a(g, seed):
     from rlsolver_tpu.algos.l2a import L2AConfig, solve_maxcut_l2a
 
-    out = solve_maxcut_l2a(g, L2AConfig(seed=seed, packed_sweep=fast))
+    out = solve_maxcut_l2a(g, L2AConfig(seed=seed))
     return out[0], out[1]
 
 
@@ -409,9 +407,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--fast",
         action="store_true",
-        help="use the bit-packed Pallas kernel paths (TPU-only, {0, +-1}-weight "
-        "graphs): MCPG sampler='fused' + sweep_mode='packed'; packed 1-flip "
-        "sweep for local_search and l2a",
+        help="MCPG on the bit-packed Pallas kernels (GPU only, integer "
+        "weights): sampler='fused' + sweep_mode='packed'",
     )
     p.add_argument(
         "--milp-time-limit",
@@ -421,6 +418,9 @@ def main(argv=None) -> int:
         "are written into the result file (reference 'obj bound' column)",
     )
     args = p.parse_args(argv)
+    from rlsolver_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     global MILP_TIME_LIMIT
     MILP_TIME_LIMIT = args.milp_time_limit
 

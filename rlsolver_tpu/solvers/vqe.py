@@ -3,10 +3,10 @@
 Reference counterpart: `rlsolver/methods/quantum.py:10-106` — maxcut/TSP
 via qiskit SamplingVQE with a TwoLocal(ry, cz) ansatz and the SPSA
 optimizer, demo-scale. qiskit is not a dependency here; the statevector
-simulation IS the TPU-friendly formulation: a TwoLocal(ry, cz) circuit on
+simulation IS the accelerator-friendly formulation: a TwoLocal(ry, cz) circuit on
 |0..0> keeps every amplitude REAL (RY matrices are real, CZ is a +-1
-diagonal), so the state is a [2^n] float32 tensor — no complex dtype, which
-the TPU backend does not support — RY layers are batched 2x2 contractions,
+diagonal), so the state is a [2^n] float32 tensor — no complex dtype on
+the device — RY layers are batched 2x2 contractions,
 CZ entanglers are sign masks, and any QUBO-style Hamiltonian is a diagonal
 vector: one gather-free expectation per step, all inside jit.
 

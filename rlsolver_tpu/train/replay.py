@@ -4,9 +4,9 @@ Reference counterpart: `rlsolver/elegantrl/train/replay_buffer.py:11-307` —
 the multi-env `ReplayBuffer` with the `SumTree` proportional-PER variant
 (`:226-307`) and buffer save/load (`:181-212`).
 
-TPU-first: instead of a pointer-chasing sum tree, priorities live in a flat
+Accelerator-first: instead of a pointer-chasing sum tree, priorities live in a flat
 [capacity] vector and sampling is `jax.random.categorical` over
-log-priorities — O(capacity) streaming work on the VPU, branch-free, and
+log-priorities — O(capacity) streaming elementwise work, branch-free, and
 trivially correct; importance weights follow the standard (N * P(i))^-beta
 formula. Buffer persistence goes through the orbax checkpoint helpers
 (`rlsolver_tpu.train.checkpoint`).

@@ -2,7 +2,7 @@
 
 The reference's generic runtime (`elegantrl/train/run.py:25-359`) spreads
 training over Learner/Worker/Evaluator processes connected by pipes, with a
-learner-to-learner buffer-exchange ring for multi-GPU. On TPU that topology
+learner-to-learner buffer-exchange ring for multi-GPU. In JAX that topology
 collapses into a single SPMD program (SURVEY.md section 2.9 P3): rollout,
 update, and metric reduction live inside one jitted `step_fn`, sharded over
 the mesh by the caller; the host loop below only handles the impure edges —

@@ -3,7 +3,7 @@
 Reference counterparts (SURVEY.md section 5): `gpu_info_str` /
 `show_gpu_memory` (`methods/util.py:76-85,578-592`), the inf-check
 `check_tensor` (`envs/env_ISCO.py:446-448`), and the print-based timers.
-TPU-native equivalents: `jax.profiler` traces, device memory stats, and
+Equivalents here: `jax.profiler` traces, device memory stats, and
 pytree-wide finiteness assertions.
 """
 

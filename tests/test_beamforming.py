@@ -1,6 +1,6 @@
 """MIMO beamforming env, ZF/MMSE baselines, refinement-policy training.
 
-Complex arithmetic is explicit (re, im) pairs (no TPU complex support);
+Complex arithmetic is explicit (re, im) pairs (no complex dtype on the device);
 host numpy complex is the test oracle.
 """
 

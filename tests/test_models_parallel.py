@@ -7,7 +7,8 @@ import pytest
 
 from rlsolver_tpu.envs.maxcut import MaxcutEnv
 from rlsolver_tpu.models.mpnn import MPNN
-from rlsolver_tpu.models.policy import BernoulliPolicy, PolicyMLP
+from rlsolver_tpu.models.policy import BernoulliPolicy
+from rlsolver_tpu.models.policy_mlp import PolicyMLP
 from rlsolver_tpu.parallel import mesh as mesh_lib
 
 

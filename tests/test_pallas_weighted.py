@@ -1,27 +1,16 @@
-"""General-integer-weight bit-plane sweep kernels (interpret mode).
-
-Bit-exactness discipline as in test_pallas_mcpg_sweep.py: the injected-noise
-kernel must match the XLA twin exactly, and the deterministic 1-flip sweep
-must match `MaxcutEnv.sweep_1flip`'s f32 incremental-gain path bit for bit.
-"""
+"""General-integer-weight bit-plane tables of the sweep kernel, and the
+kernel on them (interpret mode) against the XLA twin."""
 
 import jax
-import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from rlsolver_tpu.core.generate import graph_from_name
 from rlsolver_tpu.core.graph import Graph
-from rlsolver_tpu.envs.maxcut import MaxcutEnv
 from rlsolver_tpu.ops.pallas.mcpg_sweep import (
-    PackedSweepTables,
-    mcpg_sweep_packed,
-    mcpg_sweep_reference,
-)
-from rlsolver_tpu.ops.pallas.weighted_sweep import (
-    WeightedAdjPlanes,
     WeightedSweepTables,
-    mcpg_sweep_weighted,
-    sweep_1flip_weighted,
+    mcpg_sweep_fused,
+    mcpg_sweep_reference,
+    sweep_noise_grid,
 )
 
 
@@ -44,6 +33,7 @@ def test_tables_plane_reconstruction():
     adj = np.asarray(g.adjacency_dense())
     order = np.asarray(t.nodes)
     n = g.num_nodes
+    k = t.k_planes
 
     def unpack(m):
         words = np.asarray(m).view(np.uint32)
@@ -51,145 +41,39 @@ def test_tables_plane_reconstruction():
         return bits.reshape(m.shape[0], -1)[:, :n]
 
     recon = np.zeros((n, n))
-    for b, p in enumerate(t.planes_pos):
-        recon += (1 << b) * unpack(p)
-    for b, p in enumerate(t.planes_neg):
-        recon -= (1 << b) * unpack(p)
+    for b in range(k):
+        recon += (1 << b) * unpack(t.masks[1 + b])
+        recon -= (1 << b) * unpack(t.masks[1 + k + b])
     np.testing.assert_array_equal(recon, adj[order])
+    # plane 0 is the earlier-in-order table
+    pos = np.empty(n, int)
+    pos[order] = np.arange(n)
+    np.testing.assert_array_equal(
+        unpack(t.masks[0]), pos[None, :] < np.arange(n)[:, None]
+    )
+
+
+def _check(g, b, sweeps, seed):
+    t = WeightedSweepTables.build(g)
+    bits = jax.random.bernoulli(jax.random.PRNGKey(seed), 0.5, (b, g.num_nodes))
+    out = mcpg_sweep_fused(seed, bits, t, num_sweeps=sweeps, interpret=True)
+    noise = sweep_noise_grid(seed, b, sweeps * g.num_nodes)
+    ref = mcpg_sweep_reference(noise, bits, t, g, num_sweeps=sweeps)
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    return t
 
 
 def test_weighted_sweep_bit_exact_vs_twin():
-    g = weighted_graph()
-    t = WeightedSweepTables.build(g)
-    b, n, sweeps = 16, g.num_nodes, 3
-    key = jax.random.PRNGKey(0)
-    bits = jax.random.bernoulli(key, 0.5, (b, n))
-    noise = jax.random.randint(jax.random.fold_in(key, 1), (sweeps * n, b), 0, 65536)
-    out = mcpg_sweep_weighted(
-        noise, bits, t, num_sweeps=sweeps, block_chains=b, interpret=True
-    )
-    ref = mcpg_sweep_reference(noise, bits, t, g, num_sweeps=sweeps)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+    t = _check(weighted_graph(), b=16, sweeps=3, seed=0)
+    assert t.has_neg and t.k_planes == 3
 
 
 def test_weighted_sweep_unsigned_graph():
-    g = weighted_graph(n=40, seed=7, w_max=6, signed=False)
-    t = WeightedSweepTables.build(g)
-    assert t.planes_neg == ()
-    b, n = 8, g.num_nodes
-    key = jax.random.PRNGKey(2)
-    bits = jax.random.bernoulli(key, 0.5, (b, n))
-    noise = jax.random.randint(jax.random.fold_in(key, 1), (n, b), 0, 65536)
-    out = mcpg_sweep_weighted(noise, bits, t, block_chains=b, interpret=True)
-    ref = mcpg_sweep_reference(noise, bits, t, g, num_sweeps=1)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_weighted_matches_signed_kernel_on_pm1_graph():
-    """On a {0, +-1}-weight graph the k=1 bit-plane tables must reproduce the
-    dedicated signed kernel exactly (same thresholds, same noise)."""
-    g = graph_from_name("BA_64_ID3")
-    edges = []
-    rng = np.random.default_rng(11)
-    for a, b_, w in g.to_edge_list():
-        edges.append((a, b_, -1.0 if rng.random() < 0.5 else 1.0))
-    gs = Graph.from_edge_list(g.num_nodes, edges, name="signed64")
-    tw = WeightedSweepTables.build(gs)
-    tp = PackedSweepTables.build(gs)
-    np.testing.assert_allclose(np.asarray(tw.thr1), np.asarray(tp.thr1))
-    b, n = 8, gs.num_nodes
-    key = jax.random.PRNGKey(4)
-    bits = jax.random.bernoulli(key, 0.5, (b, n))
-    noise = jax.random.randint(jax.random.fold_in(key, 1), (2 * n, b), 0, 65536)
-    out_w = mcpg_sweep_weighted(
-        noise, bits, tw, num_sweeps=2, block_chains=b, interpret=True
-    )
-    out_p = mcpg_sweep_packed(
-        noise, bits, tp, num_sweeps=2, block_chains=b, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(out_w), np.asarray(out_p))
-
-
-def test_weighted_1flip_bit_exact_vs_env_sweep():
-    g = weighted_graph(n=56, seed=9, w_max=7)
-    planes = WeightedAdjPlanes.build(g)
-    env = MaxcutEnv(g, dtype=jnp.float32)
-    key = jax.random.PRNGKey(5)
-    xs = env.random_xs(key, 32)
-    vs = env.obj(xs)
-    out = sweep_1flip_weighted(xs, planes, block_chains=32, interpret=True)
-    xs_ref, vs_ref = env.sweep_1flip(xs, vs)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(xs_ref))
-    # monotone: the sweep never decreases the cut
-    assert (np.asarray(env.obj(out)) >= np.asarray(vs) - 1e-5).all()
-
-
-def test_weighted_1flip_via_env_packed_path():
-    """MaxcutEnv(packed_sweep=True) transparently uses the bit-plane kernel
-    for general integer weights."""
-    g = weighted_graph(n=48, seed=13, w_max=3)
-    env = MaxcutEnv(g, dtype=jnp.float32, packed_sweep=True, packed_interpret=True)
-    ref_env = MaxcutEnv(g, dtype=jnp.float32)
-    key = jax.random.PRNGKey(6)
-    xs = env.random_xs(key, 16)
-    vs = env.obj(xs)
-    out, out_vs = env.sweep_1flip(xs, vs)
-    xs_ref, vs_ref = ref_env.sweep_1flip(xs, vs)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(xs_ref))
-    np.testing.assert_allclose(np.asarray(out_vs), np.asarray(vs_ref), atol=1e-4)
+    t = _check(weighted_graph(n=40, seed=7, w_max=6, signed=False), b=8, sweeps=1, seed=2)
+    assert not t.has_neg and t.masks.shape[0] == 1 + t.k_planes
 
 
 def test_non_integer_weights_rejected():
-    import pytest
-
     g = Graph.from_edge_list(4, [(0, 1, 0.5), (1, 2, 1.0)], name="frac")
     with pytest.raises(ValueError, match="integer"):
         WeightedSweepTables.build(g)
-    with pytest.raises(ValueError, match="integer"):
-        WeightedAdjPlanes.build(g)
-
-
-def test_chunked_sweep_matches_resident_and_twin():
-    """Node-chunked mask streaming (the G70-scale path) is bit-identical to
-    the resident-mask kernel and the XLA twin."""
-    g = weighted_graph(n=96, seed=21, w_max=4)
-    t = WeightedSweepTables.build(g)
-    b, n, sweeps = 16, g.num_nodes, 2
-    key = jax.random.PRNGKey(8)
-    bits = jax.random.bernoulli(key, 0.5, (b, n))
-    noise = jax.random.randint(jax.random.fold_in(key, 1), (sweeps * n, b), 0, 65536)
-    resident = mcpg_sweep_weighted(
-        noise, bits, t, num_sweeps=sweeps, block_chains=b, interpret=True
-    )
-    chunked = mcpg_sweep_weighted(
-        noise, bits, t, num_sweeps=sweeps, block_chains=b, node_chunk=24,
-        interpret=True,
-    )
-    ref = mcpg_sweep_reference(noise, bits, t, g, num_sweeps=sweeps)
-    np.testing.assert_array_equal(np.asarray(chunked), np.asarray(resident))
-    np.testing.assert_array_equal(np.asarray(chunked), np.asarray(ref))
-
-
-def test_chunked_1flip_matches_env_sweep():
-    g = weighted_graph(n=64, seed=23, w_max=3)
-    planes = WeightedAdjPlanes.build(g)
-    env = MaxcutEnv(g, dtype=jnp.float32)
-    key = jax.random.PRNGKey(9)
-    xs = env.random_xs(key, 16)
-    vs = env.obj(xs)
-    out = sweep_1flip_weighted(xs, planes, block_chains=16, node_chunk=16,
-                               interpret=True)
-    xs_ref, _ = env.sweep_1flip(xs, vs)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(xs_ref))
-
-
-def test_chunked_validation_errors():
-    import pytest
-
-    g = weighted_graph(n=64, seed=23, w_max=3)
-    t = WeightedSweepTables.build(g)
-    bits = jnp.zeros((8, 64), bool)
-    noise = jnp.zeros((64, 8), jnp.int32)
-    with pytest.raises(ValueError, match="node_chunk"):
-        mcpg_sweep_weighted(noise, bits, t, block_chains=8, node_chunk=20,
-                            interpret=True)

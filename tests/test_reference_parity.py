@@ -162,7 +162,7 @@ def test_gset_file_reader_parity(ref_obj):
 
 def test_signed_weight_maxcut_parity(ref_obj):
     """+-1 edge weights (the G11/G32-class Gset shape): objective, device
-    kernels, and the bit-packed signed 1-flip sweep all agree with the
+    kernels, and the signed 1-flip sweep all agree with the
     reference oracle (`util_obj.py:31` sums signed adjacency entries)."""
     import jax.numpy as jnp
 
@@ -178,20 +178,16 @@ def test_signed_weight_maxcut_parity(ref_obj):
     ]
     g = Graph.from_edge_list(base.num_nodes, edges, name="BA_32_pm1")
     nxg = g.to_networkx()
-    env = MaxcutEnv(g, packed_sweep=True)
+    env = MaxcutEnv(g)
     sols = random_solutions(g.num_nodes, seed=7)
     dev = np.asarray(env.obj(jnp.asarray(sols, bool)))
     for i, sol in enumerate(sols):
         theirs = float(ref_obj.obj_maxcut(sol.tolist(), nxg))
         assert abs(obj_maxcut(sol, g) - theirs) < 1e-6
         assert dev[i] == theirs
-    # the packed signed sweep's accepted state must re-score consistently
-    from rlsolver_tpu.ops.pallas.mcpg_sweep import pack_adjacency, sweep_1flip_packed
-
+    # the signed sweep's accepted state must re-score consistently
     bits = jnp.asarray(sols, bool)
-    swept = sweep_1flip_packed(
-        bits, pack_adjacency(g), block_chains=sols.shape[0], interpret=True
-    )
+    swept, _ = env.sweep_1flip(bits, env.obj(bits))
     vs = np.asarray(env.obj(swept))
     for i in range(sols.shape[0]):
         theirs = float(ref_obj.obj_maxcut(np.asarray(swept)[i].astype(int).tolist(), nxg))
